@@ -1,7 +1,7 @@
 # Build/test entry points. The native library also auto-builds on first use.
 PY ?= python
 
-.PHONY: native test test-tpu bench clean
+.PHONY: native test test-gpu bench smoke clean
 
 native:
 	$(PY) -m pointcloud_stitching_tpu.native.build
@@ -26,8 +26,13 @@ cpu-baseline:
 test: native
 	$(PY) -m pytest tests/ -q
 
-test-tpu: native
-	PCS_TEST_TPU=1 $(PY) -m pytest tests/ -q
+# the tests marked gpu, on a machine with an NVIDIA card
+test-gpu: native
+	PCS_TEST_GPU=1 $(PY) -m pytest tests/ -q -m gpu
+
+# end-to-end check on one GPU (served path, parity, TSDF)
+smoke:
+	$(PY) chip_smoke.py
 
 bench: native
 	$(PY) bench.py

@@ -4,7 +4,7 @@
 // src/pcs-camera-server.cpp — SURVEY.md §3.1): bind/listen/accept, then one
 // depth frame per 1-byte pull request, snappy-compressed, length-prefixed.
 // Per the rebuild plan (SURVEY.md §2.1 native checklist), capture + socket
-// ingest stay native on the host while all geometry runs on the TPU, so the
+// ingest stay native on the host while all geometry runs on the accelerator, so the
 // wire carries raw u16 depth (DEPTH16 frames of runtime/wire.py).
 //
 // Frame sources (all implement the FrameSource interface below):
@@ -213,7 +213,7 @@ class ReplaySource : public FrameSource {
 #ifdef PCS_WITH_RS2
 // Live RealSense D400 capture: the reference camera server's rs2::pipeline
 // loop (SURVEY.md §3.1) minus camera-side deprojection — the wire carries
-// raw u16 depth and deprojection runs on the TPU. Color (when enabled) is
+// raw u16 depth and deprojection runs on the accelerator. Color (when enabled) is
 // aligned onto the depth grid with rs2::align so the payload stays
 // DEPTH16_COLOR. Thread-safe: one pipeline shared by every client
 // connection (frames are consumed jointly — a live camera has one "now").

@@ -2,7 +2,7 @@
 //
 // Measures what the reference's C++/PCL stack (deproject -> transform ->
 // concat -> VoxelGrid, plus the north star's >=5 ICP iters/pair/frame)
-// sustains on this host CPU, so bench.py's ">=10x CPU baseline" ratio is a
+// sustains on the host CPU, so the ">=10x CPU baseline" ratio can be a
 // measured number instead of a claim (BASELINE.md line 16; reference
 // publishes no numbers — BASELINE.json "published": {}).
 //

@@ -1,4 +1,4 @@
-"""pointcloud_stitching_tpu — TPU-native multi-camera point-cloud stitching.
+"""pointcloud_stitching_tpu — multi-camera point-cloud stitching on an accelerator.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 ``conix-center/pointcloud_stitching`` (C++/PCL/librealsense): N depth-camera

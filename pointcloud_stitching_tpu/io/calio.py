@@ -43,7 +43,7 @@ def discover_cals(directory: str, prefix: str = "") -> list[str]:
 #
 # The reference never persists intrinsics: its camera node reads them from
 # the device (rs2 API) and deprojects locally. Here deprojection runs
-# centrally on the TPU (DEPTH16 mode), so the client must know every
+# centrally on the device (DEPTH16 mode), so the client must know every
 # camera's intrinsics — a small JSON per camera, written once at rig
 # bring-up (runtime/realsense_server.py dumps it from the device when
 # pyrealsense2 is present) and loaded by stitch_cli --intr-dir.

@@ -3,7 +3,7 @@
 The headless-friendly equivalent of the reference registration tool's
 interactive picking (reference: registration/ dual-viewport PCL
 ``manual_registration`` workflow, shift-click >=3 pairs in each cloud —
-SURVEY.md §3.4). A TPU serving box has no VTK; instead each cloud renders to
+SURVEY.md §3.4). A headless serving box has no VTK; instead each cloud renders to
 an orthographic image *plus an index map* remembering which point won each
 pixel's depth test, so a pixel click (cv2 mouse event, or coordinates typed
 over ssh) maps exactly to the point index the reference's 3-D picker would

@@ -2,7 +2,7 @@
 
 The visualization sink replacing the reference's live
 ``pcl::visualization::PCLVisualizer`` window (reference: client render loop —
-SURVEY.md §1 L4). A TPU serving box has no GUI; the faithful equivalent is a
+SURVEY.md §1 L4). A headless serving box has no GUI; the faithful equivalent is a
 stream of rendered snapshots (plus the .ply writer in io/plyio.py). Uses
 cv2 when available, else writes binary PPM (zero-dependency).
 """

@@ -1,10 +1,8 @@
 from .nn_pallas import (nearest_neighbors_pallas,
                         nearest_neighbors_pallas_batched,
-                        nn_batched_prepared, prepare_ref_batched)
-from .segment_reduce import segment_sum_from_flags, segment_sum_sorted
+                        nearest_neighbors_pruned, nn_prepared, prepare_ref)
 
 __all__ = [
     "nearest_neighbors_pallas", "nearest_neighbors_pallas_batched",
-    "nn_batched_prepared", "prepare_ref_batched",
-    "segment_sum_from_flags", "segment_sum_sorted",
+    "nearest_neighbors_pruned", "nn_prepared", "prepare_ref",
 ]

@@ -1,30 +1,24 @@
-"""Pallas TPU kernel: tiled brute-force nearest-neighbour search.
+"""Pallas kernel (Triton route): tiled brute-force nearest-neighbour search.
 
-The flagship kernel: replaces PCL's KD-tree NN with dense blockwise
-distance sweeps. The N x M distance matrix is never materialised: the grid
-sweeps (query_tile x ref_block) blocks, keeping a running (best_d2,
-best_idx) pair resident in the output VMEM block across the sequential
-ref-block dimension. 100k x 100k queries touch 40 GB of distances but only
-ever hold one ~1 MB block on chip.
+Replaces PCL's KD-tree NN with a dense blockwise distance sweep that never
+stores a distance. Each program owns one query tile and loops over the
+reference blocks inside the kernel, carrying the running (min d², argmin)
+pair in registers; only the per-query result reaches device memory. The
+XLA form (ops/nn.py) instead writes every [query_tile x ref_tile] distance
+tile to device memory and reads it back for the argmin.
 
-Two block-distance methods:
-  * 'vpu' (default): direct squared differences via broadcast outer ops —
-    with a contraction depth of only 3, the MXU is the wrong unit (a matmul
-    pads K to the array depth), and the direct form is exact f32 with no
-    |a|^2+|b|^2-2ab cancellation. Measured ~10% faster than 'mxu' on v5e
-    (the kernel is min/argmin-pass bound, not matmul bound) and chosen as
-    the default for the exactness, not the speed.
-  * 'mxu': the distance-matmul form (|q|^2 + |r|^2 - 2 q·r^T) at HIGHEST
-    precision — what the BASELINE sketch suggested; kept for comparison and
-    for potential high-dimensional feature variants where K is large.
+Distances are direct squared differences, exact in f32: with a contraction
+depth of 3 there is no matrix product worth making, and the direct form has
+no |a|²+|b|²-2ab cancellation and no TF32 question.
 
 Tie behaviour matches numpy/XLA argmin: the smallest reference index wins
-(strict `<` across blocks, min-index within a block).
+(strict `<` across blocks, argmin's first index within a block).
 
 For large voxel-sorted clouds, ``nearest_neighbors_pruned`` adds exact
-key-range pruning (coarse-pass distance bound + block bounding boxes →
-contiguous block ranges per query tile): 121 → 25 ms per 131k x 131k ICP
-iteration with bit-identical results. See docs/KERNELS.md.
+key-range pruning (coarse-pass distance bound + block bounding boxes ->
+contiguous block ranges per query tile). Each program reads its own
+[lo, hi] block range from an input array, so the sweep length is a dynamic
+loop bound.
 
 Replaces: pcl::KdTreeFLANN::nearestKSearch(k=1) inside
 pcl::IterativeClosestPoint (reference: registration/ tool; SURVEY.md §2.2
@@ -37,325 +31,151 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 _FAR = 1e12  # coordinate sentinel for invalid reference points
 
+# Tile sizes and launch shape, chosen by a sweep on an H100 at the ring-ICP
+# shape (8 x 2048 x 2048) and at 131k x 131k (scripts/gpu_timing.py
+# --sweep; PERF.md, Findings). Both tiles are powers of two, as the Triton
+# route requires.
+QUERY_TILE = 16
+REF_BLOCK = 512
+NUM_WARPS = 2
+NUM_STAGES = 2
 
-def _block_d2(q, rT, rsq, precision, method):
-    """[QT, MB] squared distances for one block pair.
 
-    method='vpu': direct squared differences via broadcast outer ops. With
-    K=3 the MXU is the wrong unit — a matmul pads the contraction to the
-    array depth while the VPU does the whole thing in ~9 elementwise passes,
-    exactly in f32 and with no |a|^2+|b|^2-2ab cancellation error (and ~10%
-    faster than the HIGHEST-precision matmul form on v5e).
-    method='mxu': the |q|^2+|r|^2-2qr matmul form (kept for comparison).
+def _planes(x: jax.Array, mask: jax.Array | None, tile: int,
+            fill: float) -> tuple[jax.Array, ...]:
+    """[B, N, 3] -> three [B, Npad] coordinate planes (Npad a tile multiple).
+
+    Masked and padded rows carry ``fill`` so they never win an argmin.
     """
-    if method == "vpu":
-        d2 = jnp.zeros((q.shape[0], rT.shape[1]), jnp.float32)
-        for c in range(3):
-            diff = q[:, c:c + 1] - rT[c:c + 1, :]
-            d2 = d2 + diff * diff
-        return d2
-    qsq = jnp.sum(q * q, axis=1, keepdims=True)
-    cross = jax.lax.dot_general(
-        q, rT, dimension_numbers=(((1,), (0,)), ((), ())),
-        precision=precision, preferred_element_type=jnp.float32)
-    return qsq + rsq - 2.0 * cross
+    b, n, _ = x.shape
+    if mask is not None:
+        x = jnp.where(mask[..., None], x, fill)
+    npad = -(-n // tile) * tile
+    x = jnp.pad(x, ((0, 0), (0, npad - n), (0, 0)), constant_values=fill)
+    return tuple(x[..., c] for c in range(3))
 
 
-@partial(jax.jit, static_argnames=("query_tile", "ref_block", "interpret",
-                                   "precision", "method"))
-def nearest_neighbors_pallas(query: jax.Array, ref: jax.Array,
-                             ref_mask: jax.Array | None = None,
-                             query_tile: int = 1024, ref_block: int = 1024,
-                             interpret: bool = False,
-                             precision: str = "highest",
-                             method: str = "vpu"):
-    """For each query point, index + squared distance of nearest ref point.
+def prepare_ref(ref: jax.Array, ref_mask: jax.Array | None,
+                ref_block: int = REF_BLOCK) -> tuple[jax.Array, ...]:
+    """Pad the reference once for repeated batched-NN calls.
 
-    Same contract as ops.nn.nearest_neighbors: (idx [N] i32, d2 [N] f32);
-    masked reference points are never matched.
-
-    query_tile of 1024 matches the XLA layout tile of 1-D arrays on TPU
-    (the outputs are 1-D running-best vectors; other tile sizes fail Mosaic
-    layout checks outside interpret mode).
+    ICP calls NN every iteration against the same reference cloud; this
+    keeps the masking and padding out of the loop. Returns three [B, Mpad]
+    coordinate planes.
     """
-    # single-pair = batched with B=1 (one kernel implementation to maintain;
-    # the DMA-looped kernel is also the fastest)
-    ref_mask_b = None if ref_mask is None else ref_mask[None]
-    idx, d2 = nearest_neighbors_pallas_batched(
-        query[None], ref[None], ref_mask_b, query_tile=query_tile,
-        ref_block=ref_block, interpret=interpret, precision=precision,
-        method=method)
-    return idx[0], d2[0]
+    return _planes(ref, ref_mask, ref_block, _FAR)
 
 
-def prepare_ref_batched(ref: jax.Array, ref_mask: jax.Array | None,
-                        ref_block: int = 1024):
-    """Pad/transpose the reference once for repeated batched-NN calls.
-
-    ICP calls NN every iteration against the SAME reference cloud; doing
-    this prep per iteration wastes a transpose+pad of the whole ref. Returns
-    (rT [B, 8, Mpad], rsq [B, 1, Mpad]).
-    """
-    b, m, _ = ref.shape
-    if ref_mask is None:
-        ref_mask = jnp.ones((b, m), bool)
-    refm = jnp.where(ref_mask[..., None], ref, _FAR)
-    mpad = -(-m // ref_block) * ref_block
-    rp = jnp.pad(refm, ((0, 0), (0, mpad - m), (0, 0)), constant_values=_FAR)
-    rsq = jnp.sum(rp * rp, axis=-1)[:, None, :]
-    rT = jnp.swapaxes(jnp.pad(rp, ((0, 0), (0, 0), (0, 5))), 1, 2)
-    return rT, rsq
-
-
-def _nn_kernel_dma(q_ref, rT_hbm, rsq_hbm, d2_ref, idx_ref,
-                   rT_s, rsq_s, sem_rT, sem_rsq, *,
-                   ref_block, nm, precision, method):
-    """One (batch, query-tile) step; sweeps all ref blocks internally with
-    double-buffered HBM→VMEM DMA. Versus a third grid dimension this cuts
-    grid-step overhead ~8x and overlaps the ref fetch with the distance
-    math."""
-    bb = pl.program_id(0)
-    q = q_ref[...]                                     # [QT, 8]
-    need_rsq = method == "mxu"
-
-    def dma_rT(slot, j):
-        return pltpu.make_async_copy(
-            rT_hbm.at[bb, :, pl.ds(j * ref_block, ref_block)],
-            rT_s.at[slot], sem_rT.at[slot])
-
-    def dma_rsq(slot, j):
-        return pltpu.make_async_copy(
-            rsq_hbm.at[bb, :, pl.ds(j * ref_block, ref_block)],
-            rsq_s.at[slot], sem_rsq.at[slot])
-
-    dma_rT(0, 0).start()
-    if need_rsq:
-        dma_rsq(0, 0).start()
+def _nn_kernel(*refs, ref_block: int, nm: int, ranged: bool):
+    """One (batch, query-tile) program: sweep ref blocks, keep the best."""
+    if ranged:
+        qx, qy, qz, rx, ry, rz, jlo_ref, jhi_ref, d2_ref, idx_ref = refs
+        jlo, jhi = jlo_ref[()], jhi_ref[()] + 1
+    else:
+        qx, qy, qz, rx, ry, rz, d2_ref, idx_ref = refs
+        jlo, jhi = 0, nm
+    q = [c[...][:, None] for c in (qx, qy, qz)]            # [QT, 1] each
 
     def body(j, carry):
         best_d2, best_idx = carry
-        slot = j % 2
-
-        @pl.when(j + 1 < nm)
-        def _():
-            dma_rT((j + 1) % 2, j + 1).start()
-            if need_rsq:
-                dma_rsq((j + 1) % 2, j + 1).start()
-
-        dma_rT(slot, j).wait()
-        if need_rsq:
-            dma_rsq(slot, j).wait()
-        d2 = _block_d2(q, rT_s[slot], rsq_s[slot], precision, method)
-        # min + masked index-min beats jnp.argmin here (measured 2.5 vs
-        # 3.0 ms on the ring workload) and keeps first-tie semantics
+        sl = pl.ds(j * ref_block, ref_block)
+        d2 = None
+        for qc, rc in zip(q, (rx, ry, rz)):
+            diff = qc - rc[sl][None, :]                    # [QT, RB]
+            d2 = diff * diff if d2 is None else d2 + diff * diff
         m = jnp.min(d2, axis=1)
-        cols = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
-        am = jnp.min(jnp.where(d2 <= m[:, None], cols, jnp.int32(2 ** 30)),
-                     axis=1)
-        gidx = j * ref_block + am
+        am = jnp.argmin(d2, axis=1).astype(jnp.int32)
         better = m < best_d2
         return (jnp.where(better, m, best_d2),
-                jnp.where(better, gidx, best_idx))
+                jnp.where(better, j * ref_block + am, best_idx))
 
-    init = (q[:, 0] * 0.0 + jnp.inf, (q[:, 0] * 0.0).astype(jnp.int32))
-    best_d2, best_idx = jax.lax.fori_loop(0, nm, body, init)
+    qt = d2_ref.shape[0]
+    init = (jnp.full((qt,), jnp.inf, jnp.float32),
+            jnp.zeros((qt,), jnp.int32))
+    best_d2, best_idx = jax.lax.fori_loop(jlo, jhi, body, init)
     d2_ref[...] = best_d2
     idx_ref[...] = best_idx
 
 
-@partial(jax.jit, static_argnames=("query_tile", "ref_block", "interpret",
-                                   "precision", "method", "num_ref"))
-def nn_batched_prepared(query: jax.Array, rT: jax.Array, rsq: jax.Array,
-                        num_ref: int, query_tile: int = 1024,
-                        ref_block: int = 1024, interpret: bool = False,
-                        precision: str = "highest", method: str = "vpu"):
-    """Batched NN against a pre-prepared reference (see prepare_ref_batched)."""
+@partial(jax.jit, static_argnames=("num_ref", "query_tile", "ref_block",
+                                   "num_warps", "num_stages", "interpret"))
+def nn_prepared(query: jax.Array, ref_planes: tuple[jax.Array, ...],
+                num_ref: int, ranges: tuple[jax.Array, jax.Array] | None = None,
+                query_tile: int = QUERY_TILE, ref_block: int = REF_BLOCK,
+                num_warps: int = NUM_WARPS, num_stages: int = NUM_STAGES,
+                interpret: bool = False):
+    """Batched NN of query [B, N, 3] against ``prepare_ref`` planes.
+
+    ranges: optional (jlo, jhi) [B, nq] int32 inclusive block ranges per
+    (batch, query tile); see ``block_ranges``. ``ref_block`` must be the
+    block the planes were padded to. Returns (idx [B, N] int32, d2 [B, N]
+    float32).
+    """
     b, n, _ = query.shape
-    mpad = rT.shape[-1]
-    npad = -(-n // query_tile) * query_tile
-    qp = jnp.pad(query, ((0, 0), (0, npad - n), (0, 8 - query.shape[-1])))
-    qp = qp.reshape(b * npad, 8)
-
-    nq, nm = npad // query_tile, mpad // ref_block
+    q_planes = _planes(query, None, query_tile, 0.0)
+    npad = q_planes[0].shape[1]
+    mpad = ref_planes[0].shape[1]
+    q_spec = pl.BlockSpec((None, query_tile), lambda bb, i: (bb, i))
+    r_spec = pl.BlockSpec((None, mpad), lambda bb, i: (bb, 0))
+    in_specs = [q_spec] * 3 + [r_spec] * 3
+    args = [*q_planes, *ref_planes]
+    if ranges is not None:
+        in_specs += [pl.BlockSpec((None, None), lambda bb, i: (bb, i))] * 2
+        args += [r.astype(jnp.int32) for r in ranges]
     d2, idx = pl.pallas_call(
-        partial(_nn_kernel_dma, ref_block=ref_block, nm=nm,
-                precision=jax.lax.Precision(precision.lower()),
-                method=method),
-        out_shape=[jax.ShapeDtypeStruct((b * npad,), jnp.float32),
-                   jax.ShapeDtypeStruct((b * npad,), jnp.int32)],
-        grid=(b, nq),
-        in_specs=[
-            pl.BlockSpec((query_tile, 8), lambda bb, i: (bb * nq + i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),   # rT stays in HBM
-            pl.BlockSpec(memory_space=pl.ANY),   # rsq stays in HBM
-        ],
-        out_specs=[
-            pl.BlockSpec((query_tile,), lambda bb, i: (bb * nq + i,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((query_tile,), lambda bb, i: (bb * nq + i,),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 8, ref_block), jnp.float32),
-            pltpu.VMEM((2, 1, ref_block), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
+        partial(_nn_kernel, ref_block=ref_block, nm=mpad // ref_block,
+                ranged=ranges is not None),
+        out_shape=[jax.ShapeDtypeStruct((b, npad), jnp.float32),
+                   jax.ShapeDtypeStruct((b, npad), jnp.int32)],
+        grid=(b, npad // query_tile),
+        in_specs=in_specs,
+        out_specs=[q_spec, q_spec],
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
+        backend="triton",
         interpret=interpret,
-    )(qp, rT, rsq)
-    d2 = d2.reshape(b, npad)[:, :n]
-    idx = jnp.minimum(idx.reshape(b, npad)[:, :n], num_ref - 1)
-    return idx, jnp.maximum(d2, 0.0)
+        name="nn_sweep",
+    )(*args)
+    idx = jnp.minimum(idx[:, :n], num_ref - 1)
+    return idx, d2[:, :n]
 
 
-@partial(jax.jit, static_argnames=("query_tile", "ref_block", "interpret",
-                                   "precision", "method"))
+@partial(jax.jit, static_argnames=("query_tile", "ref_block", "interpret"))
 def nearest_neighbors_pallas_batched(query: jax.Array, ref: jax.Array,
                                      ref_mask: jax.Array | None = None,
-                                     query_tile: int = 1024,
-                                     ref_block: int = 1024,
-                                     interpret: bool = False,
-                                     precision: str = "highest",
-                                     method: str = "vpu"):
+                                     query_tile: int = QUERY_TILE,
+                                     ref_block: int = REF_BLOCK,
+                                     interpret: bool = False):
     """Batched NN: query [B, N, 3] vs ref [B, M, 3] pairwise per batch row.
 
-    One kernel over a (B, nq, nm) grid — vmap of the unbatched kernel can't
-    lower on TPU (the batched 1-D outputs get untileable block shapes), so
-    the batch is a real grid dimension and the per-query outputs stay flat
-    [B*Npad]. Used by the ring-ICP drift correction (ncam-1 pairs at once).
+    The batch is a grid axis, so the ring-ICP drift correction runs all its
+    camera pairs in one launch.
     """
-    rT, rsq = prepare_ref_batched(ref, ref_mask, ref_block)
-    return nn_batched_prepared(query, rT, rsq, num_ref=ref.shape[1],
-                               query_tile=query_tile, ref_block=ref_block,
-                               interpret=interpret, precision=precision,
-                               method=method)
-
-def _nn_kernel_dma_ranged(jlo_ref, jhi_ref, q_ref, rT_hbm, rsq_hbm,
-                          d2_ref, idx_ref, rT_s, rsq_s, sem_rT, sem_rsq, *,
-                          ref_block, precision, method):
-    """Range-pruned variant: only sweeps ref blocks [jlo, jhi] for this
-    query tile (scalar-prefetched per (batch, tile)). The caller guarantees
-    every block that could hold a nearer neighbour than the tile's known
-    upper bound lies inside the range, so results stay exact.
-    """
-    bb = pl.program_id(0)
-    i = pl.program_id(1)
-    nq = pl.num_programs(1)
-    step = bb * nq + i
-    jlo = jlo_ref[step]
-    jhi = jhi_ref[step]
-    q = q_ref[...]
-    need_rsq = method == "mxu"
-
-    def dma_rT(slot, j):
-        return pltpu.make_async_copy(
-            rT_hbm.at[bb, :, pl.ds(j * ref_block, ref_block)],
-            rT_s.at[slot], sem_rT.at[slot])
-
-    def dma_rsq(slot, j):
-        return pltpu.make_async_copy(
-            rsq_hbm.at[bb, :, pl.ds(j * ref_block, ref_block)],
-            rsq_s.at[slot], sem_rsq.at[slot])
-
-    dma_rT(0, jlo).start()
-    if need_rsq:
-        dma_rsq(0, jlo).start()
-
-    def body(j, carry):
-        best_d2, best_idx = carry
-        slot = (j - jlo) % 2
-
-        @pl.when(j + 1 <= jhi)
-        def _():
-            dma_rT((j - jlo + 1) % 2, j + 1).start()
-            if need_rsq:
-                dma_rsq((j - jlo + 1) % 2, j + 1).start()
-
-        dma_rT(slot, j).wait()
-        if need_rsq:
-            dma_rsq(slot, j).wait()
-        d2 = _block_d2(q, rT_s[slot], rsq_s[slot], precision, method)
-        m = jnp.min(d2, axis=1)
-        cols = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
-        am = jnp.min(jnp.where(d2 <= m[:, None], cols, jnp.int32(2 ** 30)),
-                     axis=1)
-        gidx = j * ref_block + am
-        better = m < best_d2
-        return (jnp.where(better, m, best_d2),
-                jnp.where(better, gidx, best_idx))
-
-    init = (q[:, 0] * 0.0 + jnp.inf, (q[:, 0] * 0.0).astype(jnp.int32))
-    best_d2, best_idx = jax.lax.fori_loop(jlo, jhi + 1, body, init)
-    d2_ref[...] = best_d2
-    idx_ref[...] = best_idx
+    planes = prepare_ref(ref, ref_mask, ref_block)
+    return nn_prepared(query, planes, num_ref=ref.shape[1],
+                       query_tile=query_tile, ref_block=ref_block,
+                       interpret=interpret)
 
 
-@partial(jax.jit, static_argnames=("query_tile", "ref_block", "interpret",
-                                   "precision", "method", "num_ref"))
-def nn_batched_prepared_ranged(query: jax.Array, rT: jax.Array,
-                               rsq: jax.Array, jlo: jax.Array,
-                               jhi: jax.Array, num_ref: int,
-                               query_tile: int = 1024,
-                               ref_block: int = 1024,
-                               interpret: bool = False,
-                               precision: str = "highest",
-                               method: str = "vpu"):
-    """Batched NN sweeping only blocks [jlo, jhi] per (batch, query tile).
-
-    jlo/jhi: [B, nq] int32 inclusive block ranges (see
-    nearest_neighbors_pruned for how exact ranges are derived).
-    """
-    b, n, _ = query.shape
-    npad = -(-n // query_tile) * query_tile
-    qp = jnp.pad(query, ((0, 0), (0, npad - n), (0, 8 - query.shape[-1])))
-    qp = qp.reshape(b * npad, 8)
-    nq = npad // query_tile
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(b, nq),
-        in_specs=[
-            pl.BlockSpec((query_tile, 8),
-                         lambda bb, i, *_: (bb * nq + i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((query_tile,), lambda bb, i, *_: (bb * nq + i,),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((query_tile,), lambda bb, i, *_: (bb * nq + i,),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, 8, ref_block), jnp.float32),
-            pltpu.VMEM((2, 1, ref_block), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    d2, idx = pl.pallas_call(
-        partial(_nn_kernel_dma_ranged, ref_block=ref_block,
-                precision=jax.lax.Precision(precision.lower()),
-                method=method),
-        out_shape=[jax.ShapeDtypeStruct((b * npad,), jnp.float32),
-                   jax.ShapeDtypeStruct((b * npad,), jnp.int32)],
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(jlo.reshape(-1), jhi.reshape(-1), qp, rT, rsq)
-    d2 = d2.reshape(b, npad)[:, :n]
-    idx = jnp.minimum(idx.reshape(b, npad)[:, :n], num_ref - 1)
-    return idx, jnp.maximum(d2, 0.0)
+def nearest_neighbors_pallas(query: jax.Array, ref: jax.Array,
+                             ref_mask: jax.Array | None = None,
+                             query_tile: int = QUERY_TILE,
+                             ref_block: int = REF_BLOCK,
+                             interpret: bool = False):
+    """Single-pair NN; same contract as ops.nn.nearest_neighbors."""
+    idx, d2 = nearest_neighbors_pallas_batched(
+        query[None], ref[None], None if ref_mask is None else ref_mask[None],
+        query_tile=query_tile, ref_block=ref_block, interpret=interpret)
+    return idx[0], d2[0]
 
 
 def block_ranges(query: jax.Array, query_mask: jax.Array, ref: jax.Array,
                  ref_mask: jax.Array, d2_ub: jax.Array,
-                 query_tile: int = 1024, ref_block: int = 1024):
+                 query_tile: int = QUERY_TILE, ref_block: int = REF_BLOCK):
     """Exact per-query-tile ref-block ranges from bounding-box lower bounds.
 
     Voxel-sorted reference clouds are spatially coherent, so consecutive
@@ -412,16 +232,14 @@ def block_ranges(query: jax.Array, query_mask: jax.Array, ref: jax.Array,
 
 
 @partial(jax.jit, static_argnames=("query_tile", "ref_block",
-                                   "coarse_stride", "interpret", "precision",
-                                   "method"))
+                                   "coarse_stride", "interpret"))
 def nearest_neighbors_pruned(query: jax.Array, ref: jax.Array,
                              ref_mask: jax.Array | None = None,
                              query_mask: jax.Array | None = None,
                              coarse_stride: int = 16,
-                             query_tile: int = 1024, ref_block: int = 2048,
-                             interpret: bool = False,
-                             precision: str = "highest",
-                             method: str = "vpu"):
+                             query_tile: int = QUERY_TILE,
+                             ref_block: int = REF_BLOCK,
+                             interpret: bool = False):
     """Exact batched NN with key-range pruning (BVH-lite for sorted clouds).
 
     Pass 1 searches a stride-subsampled reference for a per-query upper
@@ -437,17 +255,11 @@ def nearest_neighbors_pruned(query: jax.Array, ref: jax.Array,
     if query_mask is None:
         query_mask = jnp.ones((b, n), bool)
 
-    coarse_ref = ref[:, ::coarse_stride]
-    coarse_mask = ref_mask[:, ::coarse_stride]
     _, d2_ub = nearest_neighbors_pallas_batched(
-        query, coarse_ref, coarse_mask, query_tile=query_tile,
-        ref_block=ref_block, interpret=interpret, precision=precision,
-        method=method)
-
-    jlo, jhi = block_ranges(query, query_mask, ref, ref_mask, d2_ub,
-                            query_tile=query_tile, ref_block=ref_block)
-    rT, rsq = prepare_ref_batched(ref, ref_mask, ref_block)
-    return nn_batched_prepared_ranged(
-        query, rT, rsq, jlo, jhi, num_ref=m, query_tile=query_tile,
-        ref_block=ref_block, interpret=interpret, precision=precision,
-        method=method)
+        query, ref[:, ::coarse_stride], ref_mask[:, ::coarse_stride],
+        query_tile=query_tile, ref_block=ref_block, interpret=interpret)
+    ranges = block_ranges(query, query_mask, ref, ref_mask, d2_ub,
+                          query_tile=query_tile, ref_block=ref_block)
+    return nn_prepared(query, prepare_ref(ref, ref_mask, ref_block),
+                       num_ref=m, ranges=ranges, query_tile=query_tile,
+                       ref_block=ref_block, interpret=interpret)

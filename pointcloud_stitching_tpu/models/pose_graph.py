@@ -18,7 +18,7 @@ every edge. The pseudo-log is the codebase's standard small-motion chart
 ops.se3.se3_power and the ICP updates), used both for the residual and as
 the retraction for updates.
 
-TPU-native design notes:
+Design notes:
   * The state is tiny (6 DoF x ncam <= ~100 for any physical rig), so the
     right tool is exact dense Gauss-Newton, not stochastic descent: the
     full Jacobian comes from ``jax.jacrev`` of the stacked residual at the

@@ -1,6 +1,6 @@
 """Offline pairwise registration — the calibration workflow.
 
-TPU-native equivalent of the reference's registration tool (reference:
+On-device equivalent of the reference's registration tool (reference:
 registration/ directory, adapted from PCL's manual_registration example —
 SURVEY.md §3.4): pick >=3 corresponding point pairs between two clouds →
 closed-form SVD (Kabsch) solve → optional ICP refinement → write the 4x4
@@ -190,7 +190,7 @@ def register_global(src: PointCloud, dst: PointCloud, key: jax.Array,
     The reference's workflow (and PCL's manual_registration) needs a human
     to click >=3 pairs before ICP can converge; PCL's automatic
     alternative (FPFH + SAC-IA) is a serial descriptor/RANSAC pipeline.
-    The TPU formulation is *parallel multi-start*: draw ``num_starts``
+    The accelerator formulation is *parallel multi-start*: draw ``num_starts``
     rotations uniformly at random (normalized 4-D Gaussians = uniform on
     SO(3)), center each with a centroid-matching translation, and run ALL
     the ICPs at once — the same batched machinery that powers the ring

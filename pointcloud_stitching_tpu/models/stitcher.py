@@ -1,6 +1,6 @@
 """The flagship model: the multi-camera stitching pipeline.
 
-TPU-native re-design of the reference client's per-frame path (reference:
+Accelerator re-design of the reference client's per-frame path (reference:
 src/pcs-multicamera-client.cpp render loop + per-camera threads —
 SURVEY.md §3.2/§3.3). Where the reference runs thread-per-camera CPU work
 (parse → transform) followed by serial concat/filter, here the *camera axis
@@ -43,7 +43,7 @@ class StitchMetrics(NamedTuple):
     # squared Frobenius deviation from identity of the ring-closure residual
     # (the loop camera(n-1)->camera 0 mismatch after chain corrections);
     # 0.0 when closure is off or ncam < 3. This is the accumulated-drift
-    # observability the anchored chain lacked (VERDICT r1 weak #5).
+    # observability the anchored chain lacked.
     # (plain-float default: no jax array work at import time)
     loop_error: jax.Array | float = 0.0
 
@@ -67,7 +67,7 @@ def autofit_out_leaf(points_out: jax.Array, leaf: jax.Array, *,
                      headroom: float = 0.85) -> jax.Array:
     """Per-frame output-leaf controller for a fixed-capacity voxel grid.
 
-    PCL's VoxelGrid reallocates when a scene outgrows it; a TPU program
+    PCL's VoxelGrid reallocates when a scene outgrows it; a fixed-shape program
     cannot (fixed shapes), so a saturated output drops the sorted tail of
     voxels — a spatially biased amputation. This controller instead adapts
     the *resolution*: the leaf is a traced operand of the stitch step
@@ -232,20 +232,16 @@ def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: jax.Array,
     loop_err = jnp.float32(0.0)
     if cfg.icp_enabled and ncam > 1:
         icp_clouds = voxel_downsample(sub, cfg.icp_voxel_leaf,
-                                      capacity=cfg.icp_capacity,
-                                      impl=cfg.kernel_impl,
-                                      interpret=cfg.kernel_interpret)
+                                      capacity=cfg.icp_capacity)
         extrinsics, icp_err, icp_inl, loop_err = _ring_drift_correction(
             cfg, icp_clouds, extrinsics)
 
     clouds = raw
     if cfg.cam_voxel_enabled:
-        # bound the per-camera cloud (useful when cameras shard across chips
-        # and fused points must cross ICI)
+        # bound the per-camera cloud (useful when cameras shard across devices
+        # and fused points must cross the interconnect)
         clouds = voxel_downsample(clouds, cfg.cam_voxel_leaf,
-                                  capacity=cfg.cam_capacity,
-                                  impl=cfg.kernel_impl,
-                                  interpret=cfg.kernel_interpret)
+                                  capacity=cfg.cam_capacity)
     world = clouds.replace(xyz=se3_apply(extrinsics, clouds.xyz))
     if cfg.with_normals and clouds.rgb is not None:
         # normals rotate with the refined extrinsics (translation-free),
@@ -267,8 +263,7 @@ def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: jax.Array,
     # recompile.
     leaf = cfg.out_voxel_leaf if out_leaf is None else out_leaf
     out = voxel_downsample(fused, leaf,
-                           capacity=cfg.out_capacity, impl=cfg.kernel_impl,
-                           interpret=cfg.kernel_interpret)
+                           capacity=cfg.out_capacity)
 
     metrics = StitchMetrics(points_in=points_in, points_out=out.count(),
                             icp_mean_error=icp_err, icp_inliers=icp_inl,

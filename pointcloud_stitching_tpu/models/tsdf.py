@@ -1,4 +1,4 @@
-"""Dense TSDF volume: KinectFusion-style scene fusion on the TPU.
+"""Dense TSDF volume: KinectFusion-style scene fusion on the accelerator.
 
 The reference system fuses *point sets* per frame and throws them away
 (reference: src/pcs-multicamera-client.cpp render loop, SURVEY.md §3.2);
@@ -10,16 +10,14 @@ supports watertight surface extraction, free-space carving (a removed
 object actually disappears instead of fading), view synthesis by ray
 casting, and drift-free *frame-to-model* camera tracking.
 
-TPU-first design — the volume is a **dense [X, Y, Z] grid**, not a
-voxel hash:
+Design — the volume is a **dense [X, Y, Z] grid**, not a voxel hash:
 
   * Integration is one elementwise map over the grid: every voxel center
     is projected into every camera (a [V,3]x[3,3] matmul + the pinhole
     division) and samples the depth image with one gather. No scatter,
     no atomics, no hash probes — the scatter direction ("which voxels
     does this pixel touch?") becomes a gather direction ("which pixel
-    does this voxel see?"), which is exactly the transposition TPUs
-    want. Cameras accumulate in a `fori_loop` so peak memory stays at a
+    does this voxel see?"). Cameras accumulate in a `fori_loop` so peak memory stays at a
     few V-sized f32 temporaries (a 256³ grid is 67 MB per temporary).
   * Ray casting is a fixed-step `lax.scan` march (nearest-voxel samples
     while marching, trilinear refinement + gradient normals at the hit):
@@ -39,28 +37,9 @@ Mesh extraction reuses `ops/surface.py`'s marching tetrahedra on the
 occupancy path uses, with unobserved nodes masked out so occlusion
 boundaries don't grow fake walls.
 
-Measured steady states (one TPU v5e, 256³ volume, 1 cm leaf, 4×848×480
-frames; analytic scene, scratch/pruned_integrate_r5.py r5 — the
-driver's BENCH_r05.json `tsdf` block is the canonical artifact):
-integrate **144 ms** on this scene with the default brick-pruned
-one-hot MXU lookup (method='auto' → 'mxu_pallas',
-kernels/patch_gather.py — BITWISE equal to the dense oracle; pruning
-is scene-dependent — the driver bench's smooth synthetic scene reads
-~84 ms) vs 649 ms dense (the dense op IS one
-16.7M-element random depth gather at the chip's ~115–133 M elem/s
-gather issue rate; everything else in the update measures ~5 ms);
-colored integrate 364 ms (one extra packed one-hot plane) vs 874
-dense; noise worst case (classifier overflow → unpruned full-grid
-lookup) 170 ms. Raycast 61 ms prior-window / 306 ms full-march at
-stride 2; track (2 recast rounds × 6 Gauss–Newton iters, stride 2)
-179 ms with a ±0.3 m prior window (recovers a 1.2°+11 mm perturbation
-to 0.000°/0.2 mm); extract_cloud 175 ms; extract_mesh 187 ms at 262k
-cell capacity (trace-time-composed case tables). Accuracy against the
-analytic scene: raycast median |Δdepth| 0.00 mm (p99 3.9 mm), mesh
-vertices p99 2.3 mm from the true surface. At keyframe cadence the
-volume rides the 12 ms streaming path (stitch_cli --tsdf-every); Z-slab
-sharding (parallel/tsdf_shard.py) divides the remaining gather wall by
-the mesh size.
+Speed on the card: the integrate (dense), raycast and track times at
+256³ with 4×848×480 frames are in PERF.md; nothing else here has been
+measured on the H100.
 """
 from __future__ import annotations
 
@@ -71,14 +50,13 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..ops.deproject import deproject, project
 from ..ops.se3 import mm, se3_apply, se3_compose, se3_from_rt, se3_inverse, so3_exp
-from ..utils.types import Intrinsics, PointCloud
+from ..utils.types import Intrinsics, PointCloud, pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class TSDFVolume:
     """Dense truncated signed distance volume (see module docstring).
 
@@ -171,26 +149,18 @@ def integrate(vol: TSDFVolume, depth: jax.Array, intr: Intrinsics,
       cam_mask: [ncam] bool — False drops a camera (a dead slot in the
         streaming runtime) without recompiling.
       z_min/z_max: per-camera depth validity range (meters).
-      method: 'auto' | 'mxu' | 'mxu_pallas' | 'mxu_xla' | 'brick' |
-        'dense'. 'dense' is the original one-gather-per-voxel map (the
-        oracle). The 'mxu' family replaces the 16.7M-row random depth
-        gather with brick-local one-hot MXU contractions, pruned by the
-        brick classifier so only truncation-band / boundary bricks are
-        gathered at all (FREE bricks broadcast +1, SKIP bricks cost
-        nothing; overflow of the static brick capacities lax.cond-falls
-        back to the unpruned full-grid lookup, so results never depend
-        on the capacities) — BITWISE the dense result, any grid shape
-        (non-8-divisible volumes are padded internally), color included
-        (integer color channels ride ONE packed 24-bit one-hot gather;
-        float color takes three). 'mxu_pallas' keeps the one-hots in
-        VMEM (kernels/patch_gather.py — the fast path), 'mxu_xla'
-        streams them through HBM (any backend, sharding-safe, measured
-        no faster than dense unpruned), 'mxu' picks by backend. 'brick'
-        is the older hierarchical integrator that routes REFINE bricks
-        through the random gather; kept as the scatter-path oracle but
-        superseded by the mxu family (which prunes the same way AND
-        replaces the gather). 'auto' picks mxu_pallas on TPU, else
-        dense.
+      method: 'auto' | 'dense' | 'mxu' | 'mxu_xla' | 'brick'. 'dense' is
+        the one-gather-per-voxel map (the oracle, and what 'auto' runs).
+        'mxu_xla' ('mxu' is an alias) replaces the random depth gather
+        with brick-local one-hot contractions, pruned by the brick
+        classifier so only truncation-band / boundary bricks are gathered
+        at all (FREE bricks broadcast +1, SKIP bricks cost nothing;
+        overflow of the static brick capacities lax.cond-falls back to the
+        unpruned full-grid lookup, so results never depend on the
+        capacities) — BITWISE the dense result, any grid shape
+        (non-8-divisible volumes are padded internally), color included.
+        'brick' is the older hierarchical integrator that routes REFINE
+        bricks through the random gather; kept as the scatter-path oracle.
 
     Returns the new volume.
     """
@@ -207,23 +177,15 @@ def integrate(vol: TSDFVolume, depth: jax.Array, intr: Intrinsics,
             if jnp.asarray(intr.fx).ndim == 0 else intr
     if cam_mask is None:
         cam_mask = jnp.ones((depth.shape[0],), bool)
-    methods = ("auto", "brick", "dense", "mxu", "mxu_pallas", "mxu_xla")
+    methods = ("auto", "brick", "dense", "mxu", "mxu_xla")
     if method not in methods:
         raise ValueError(f"unknown integrate method {method!r}")
     divisible = all(s % _BRICK == 0 for s in vol.shape)
     if method == "brick" and not divisible:
         raise ValueError(
             f"{method} integration needs 8-divisible grid, got {vol.shape}")
-    on_tpu = jax.default_backend() == "tpu"
     if method == "auto":
-        # the pruned one-hot lookup covers every volume exactly (color
-        # packed, non-divisible grids padded, near-camera bricks take
-        # the gather fallback), but only the Pallas kernel beats the
-        # dense gather — the XLA form loses to it unpruned (801 vs
-        # 729 ms, scratch/mxu_sweep_tpu.out)
-        method = "mxu_pallas" if on_tpu else "dense"
-    elif method == "mxu":
-        method = "mxu_pallas" if on_tpu else "mxu_xla"
+        method = "dense"
     # canonical f32 scalars: avoids one recompile per distinct python
     # float (same cache-hygiene rule as voxel_map_update)
     args = (vol, depth, intr, jnp.asarray(extrinsics),
@@ -232,9 +194,7 @@ def integrate(vol: TSDFVolume, depth: jax.Array, intr: Intrinsics,
     tail = (cam_mask, jnp.asarray(z_min, jnp.float32),
             jnp.asarray(z_max, jnp.float32))
     if method.startswith("mxu"):
-        return _integrate_mxu_jit(
-            *args, color, *tail, use_pallas=method == "mxu_pallas",
-            interpret=method == "mxu_pallas" and not on_tpu)
+        return _integrate_mxu_jit(*args, color, *tail)
     impl = _integrate_brick_jit if method == "brick" else _integrate_jit
     return impl(*args, color, *tail)
 
@@ -344,9 +304,8 @@ def _integrate_jit(vol: TSDFVolume, depth, intr, extrinsics, depth_scale,
 # hierarchical (brick) integration
 # --------------------------------------------------------------------------
 #
-# The dense map's measured cost is ~entirely its 16.7M-row random gather
-# from the depth image (123 ms/camera at 256³ on the v5e — module
-# docstring). Most of those gathers are wasted: far-from-surface voxels
+# The dense map's work is dominated by its 16.7M-row random gather from
+# the depth image (at 256³). Most of those gathers are wasted: far-from-surface voxels
 # all resolve to "uniform free space" (+1 evidence) or "no update"
 # (occluded / outside the frustum / invalid pixels). So integrate
 # hierarchically over 8³ bricks:
@@ -465,9 +424,8 @@ def _tile_stats(depth_m_c, z_min, z_max, tile: int):
 # fine tile: the window is 3·tile px and a brick uses it only when its
 # margined footprint spans ≤ 2 tiles — 32 px fits the common regime
 # (8·leaf·f/z ≈ 30 px at 1 cm/421 px/1.2 m) with a 96-px window; 16/24/48
-# measured WORSE refine counts on the r5 bench scene (16 pushes typical
-# footprints to the coarse level, 48 widens the window past the old 2×2
-# block read — scratch/classify_sweep.py)
+# gave worse refine counts on a structured test scene (16 pushes typical
+# footprints to the coarse level, 48 widens the window)
 _TILE_F = 32
 _TILE_C = 64       # coarse fallback tile (192-px window)
 
@@ -665,24 +623,21 @@ def _integrate_brick_jit(vol: TSDFVolume, depth, intr, extrinsics,
 
 
 # --------------------------------------------------------------------------
-# MXU (one-hot matmul) integration
+# one-hot matmul integration
 # --------------------------------------------------------------------------
 #
-# The dense map's cost is the 16.7M-row random HBM gather from the depth
-# image (~123 ms/camera at 256³ — module docstring); TPU gathers move one
-# element per cycle per lane and waste the 32-byte HBM access granularity.
-# But the access pattern has *structure* XLA's gather can't exploit: an 8³
-# voxel brick projects into a small, contiguous image patch. So turn the
-# random gather into dense MXU work:
+# The dense map's cost is the 16.7M-row random gather from the depth image
+# (at 256³). The access pattern has *structure* a plain gather can't
+# exploit: an 8³ voxel brick projects into a small, contiguous image patch.
+# So turn the random gather into dense matrix work:
 #
-#   per brick:  patch = dynamic_slice(depth, (v0, u0), (64, 64))   # rows
-#               rows  = onehot(v_local) @ patch     # MXU, one-hot exact
-#               d     = sum(rows * (iota == u_local), -1)          # VPU
+#   per brick:  patch = dynamic_slice(depth, (v0, u0), (64, 64))
+#               rows  = onehot(v_local) @ patch     # one-hot exact
+#               d     = sum(rows * (iota == u_local), -1)
 #
-# One-hot rows select exactly one element, so with HIGHEST precision
-# (bf16x3 limb decomposition of the patch side; the 0/1 side is exact in
-# any format) the result is BITWISE the gathered f32 value — parity with
-# the dense path is exact equality, not a tolerance. Bricks whose valid
+# One-hot rows select exactly one element, so with HIGHEST precision the
+# result is BITWISE the gathered f32 value — parity with the dense path is
+# exact equality, not a tolerance. Bricks whose valid
 # footprint exceeds the static patch (camera closer than roughly
 # 8·leaf·f/PATCH ≈ 0.5 m at 1 cm/421 px) are patched by a brick-granular
 # gather capped at `kb` bricks, and if even that overflows a lax.cond
@@ -694,40 +649,32 @@ def _integrate_brick_jit(vol: TSDFVolume, depth, intr, extrinsics,
 # the truncation band, valid/invalid depth boundaries, image-border and
 # near-camera bricks — are gathered at all; FREE bricks broadcast their
 # provable +1 per camera, FREE_BORDER bricks run the per-voxel bounds
-# test with no gather, SKIP bricks cost nothing. Unlike the brick
-# integrator (whose overflow fallback is the dense random gather, making
-# overflow CATASTROPHIC — 1005 vs 708 ms on hole-riddled frames), an
-# overflowing camera here falls back to the unpruned full-grid one-hot
-# lookup, so the worst case is round 4's measured 268–345 ms, not a
-# regression past dense. Every per-voxel delta is a single value added
+# test with no gather, SKIP bricks cost nothing. An overflowing camera
+# falls back to the unpruned full-grid one-hot lookup. Every per-voxel delta is a single value added
 # into a zero buffer per camera (categories are mutually exclusive), and
 # cameras accumulate in the same fori_loop order as dense — so pruning
 # preserves BITWISE parity, not just a tolerance.
 #
 # Color rides the same one-hot windows: 8-bit channels pack into ONE
 # integer-valued f32 image (r + 256·g + 65536·b ≤ 2²⁴−1, exactly
-# representable; bf16x3 limbs reproduce any f32 bitwise) so a colored
+# representable) so a colored
 # integrate costs ONE extra gathered plane; wider color dtypes gather
 # three f32-cast planes. Non-8-divisible grids are padded internally —
 # bricks tile the padded grid, and the padded voxels' terms are sliced
 # off before the elementwise merge, so results are exact for any shape.
 
-_PATCH = 64        # image patch edge (pixels) for the XLA one-hot lookup
-_MXU_CHUNK = 1024  # bricks per lax.map step (measured best of 256/1k/4k)
+_PATCH = 64        # image patch edge (pixels) for the one-hot lookup
+_MXU_CHUNK = 1024  # bricks per lax.map step
 
 
-def _plan_windows(ui, vi, pix_ok, H: int, W: int, use_pallas: bool):
+def _plan_windows(ui, vi, pix_ok, H: int, W: int):
     """Per-brick window plan shared by every image plane gathered at the
     same voxel indices (depth + color ride identical windows).
 
     ui/vi [K, 512] int32 CLIPPED image coords, pix_ok [K, 512] marks
     voxels whose unclipped projection is valid. Returns (v0, u0, fits):
-    window starts [K] and a mask of bricks whose valid footprint fits
-    one window. For the XLA backend the starts are clamped so the
-    static patch stays in bounds; the Pallas kernel clamps and aligns
-    internally (kernels/patch_gather.py), so its starts pass through
-    raw and local indices stay relative to the returned starts in both
-    backends.
+    window starts [K], clamped so the static patch stays in bounds, and a
+    mask of bricks whose valid footprint fits one window.
     """
     big = jnp.int32(1 << 20)
     u_min = jnp.min(jnp.where(pix_ok, ui, big), axis=1)
@@ -735,13 +682,6 @@ def _plan_windows(ui, vi, pix_ok, H: int, W: int, use_pallas: bool):
     v_min = jnp.min(jnp.where(pix_ok, vi, big), axis=1)
     v_max = jnp.max(jnp.where(pix_ok, vi, -1), axis=1)
     none_ok = ~jnp.any(pix_ok, axis=1)
-    if use_pallas:
-        from ..kernels.patch_gather import SPAN_U, SPAN_V
-        fits = none_ok | ((u_max - u_min < SPAN_U)
-                          & (v_max - v_min < SPAN_V))
-        u0 = jnp.where(none_ok, 0, u_min)
-        v0 = jnp.where(none_ok, 0, v_min)
-        return v0, u0, fits
     pv, pu = min(_PATCH, H), min(_PATCH, W)
     fits = none_ok | ((u_max - u_min < pu) & (v_max - v_min < pv))
     # clamped patch origin still covers the span: u0 = min(u_min, W-pu)
@@ -751,25 +691,15 @@ def _plan_windows(ui, vi, pix_ok, H: int, W: int, use_pallas: bool):
     return v0, u0, fits
 
 
-def _onehot_gather(img, v0, u0, iv, iu, use_pallas: bool,
-                   interpret: bool, mode: str):
-    """img[v0+iv, u0+iu] via one-hot MXU dots — ONE [H, W] f32 plane.
+def _onehot_gather(img, v0, u0, iv, iu):
+    """img[v0+iv, u0+iu] via one-hot dots — ONE [H, W] f32 plane.
 
     Bitwise the gathered value for every index that lands in its brick's
-    window (fitting bricks' pix_ok voxels); elsewhere don't-care (0 or an
-    alignment-slop pixel) — callers patch non-fitting bricks and the
-    update math gates invalid voxels. ``mode`` is the limb-exactness
-    strategy for the Pallas backend (kernels/patch_gather.py keeps the
-    one-hots in VMEM — the fast path); the XLA form streams
-    [chunk, 512, 64] one-hots through HBM at HIGHEST precision and is
-    bound by its vmapped-dynamic_slice patch extraction (measured 72 of
-    77 ms/camera at 256³ — scratch/mxu_sweep_tpu.out), kept as the
-    sharding-safe / any-backend fallback.
+    window (fitting bricks' pix_ok voxels); elsewhere don't-care (0) —
+    callers patch non-fitting bricks and the update math gates invalid
+    voxels. Streams [chunk, 512, 64] one-hots through memory at HIGHEST
+    precision.
     """
-    if use_pallas:
-        from ..kernels.patch_gather import patch_gather
-        return patch_gather(img, v0, u0, iv, iu, mode=mode,
-                            interpret=interpret)
     nb = v0.shape[0]
     H, W = img.shape
     pv, pu = min(_PATCH, H), min(_PATCH, W)
@@ -789,9 +719,9 @@ def _onehot_gather(img, v0, u0, iv, iu, use_pallas: bool,
     # full chunks via sentinel padding, NOT gcd(chunk, nb): the pruned
     # tier capacities (nb//3, nb//2) and any-shape brick counts are
     # rarely chunk-divisible, and a gcd chunk degenerates to 1-2 rows —
-    # thousands of serialized map steps (r5 review). Pad rows gather
-    # window (0,0) (in bounds, don't-care) and are sliced off; per-row
-    # values are chunk-size independent, so this stays bitwise.
+    # thousands of serialized map steps. Pad rows gather window (0,0) (in
+    # bounds, don't-care) and are sliced off; per-row values are
+    # chunk-size independent, so this stays bitwise.
     c = min(_MXU_CHUNK, nb)
     k = -(-nb // c) * c
     if k != nb:
@@ -806,12 +736,10 @@ def _onehot_gather(img, v0, u0, iv, iu, use_pallas: bool,
     return d.reshape(k, _BVOX)[:nb]
 
 
-@partial(jax.jit, donate_argnames=("vol",),
-         static_argnames=("use_pallas", "interpret"))
+@partial(jax.jit, donate_argnames=("vol",))
 def _integrate_mxu_jit(vol: TSDFVolume, depth, intr, extrinsics,
                        depth_scale, max_weight, color, cam_mask,
-                       z_min, z_max, use_pallas: bool = False,
-                       interpret: bool = False) -> TSDFVolume:
+                       z_min, z_max) -> TSDFVolume:
     X0, Y0, Z0 = vol.shape
     # any-shape: bricks tile an internally padded grid; the pad voxels
     # are real world positions whose terms get computed and then sliced
@@ -819,12 +747,11 @@ def _integrate_mxu_jit(vol: TSDFVolume, depth, intr, extrinsics,
     shape = tuple(-(-s // _BRICK) * _BRICK for s in (X0, Y0, Z0))
     X, Y, Z = shape
     nb = (X // _BRICK) * (Y // _BRICK) * (Z // _BRICK)
-    # tiered gather capacities: the kernel's cost is proportional to the
+    # tiered gather capacities: the lookup's cost is proportional to the
     # STATIC capacity (sentinel-padded), so a per-camera lax.cond chain
     # picks the smallest tier that fits its REFINE count — a thin-band
-    # rig pays nb//8, the plane-heavy r5 bench scene lands nb//3
-    # (measured 8.6k/32768 refine), pepper-hole frames nb//2, and only
-    # a band-saturating frame pays the full unpruned grid
+    # rig pays nb//8, a plane-heavy scene nb//3, pepper-hole frames
+    # nb//2, and only a band-saturating frame pays the full unpruned grid
     gcaps = sorted({min(nb, max(256, nb // 8)),
                     min(nb, max(256, nb // 3)),
                     min(nb, max(256, nb // 2))})
@@ -832,18 +759,15 @@ def _integrate_mxu_jit(vol: TSDFVolume, depth, intr, extrinsics,
     ncam, H, W = depth.shape
     has_rgb = vol.rgb is not None
 
-    # the Pallas lookup gathers the PRE-scale image so a u16 source can
-    # use the 2-pass bf16x2 limb mode (raw values have <= 16 significant
-    # bits); raw*scale after the gather is bitwise the dense value
-    raw_is_int = bool(jnp.issubdtype(depth.dtype, jnp.integer))
-    depth_mode = "bf16x2" if raw_is_int else "bf16x3"
+    # the lookup gathers the PRE-scale image; raw*scale after the gather
+    # is bitwise the dense value
     depth_raw = depth.astype(jnp.float32)
     depth_m = depth_raw * depth_scale
     inv_ext = se3_inverse(extrinsics)
 
     # color planes riding the same one-hot windows: 8-bit channels pack
-    # into ONE integer-valued f32 image (≤ 24 significant bits — bf16x3
-    # reproduces any f32 bitwise); wider dtypes gather three f32-cast
+    # into ONE integer-valued f32 image (≤ 24 significant bits, exact in
+    # f32); wider dtypes gather three f32-cast
     # planes (the dense path gathers then casts, and per-element
     # cast-then-gather is the same value)
     packed_rgb = has_rgb and color.dtype == jnp.uint8
@@ -881,14 +805,12 @@ def _integrate_mxu_jit(vol: TSDFVolume, depth, intr, extrinsics,
         uib = jnp.clip(ui, 0, W - 1).reshape(K, _BVOX)
         vib = jnp.clip(vi, 0, H - 1).reshape(K, _BVOX)
         v0, u0, fits = _plan_windows(
-            uib, vib, pix_ok.reshape(K, _BVOX), H, W, use_pallas)
+            uib, vib, pix_ok.reshape(K, _BVOX), H, W)
         fits = fits | (bsel == nb)      # sentinels never eat kb slots
         iv = vib - v0[:, None]
         iu = uib - u0[:, None]
-        d = _onehot_gather(depth_raw[c], v0, u0, iv, iu, use_pallas,
-                           interpret, depth_mode) * depth_scale
-        cols = tuple(_onehot_gather(p[c], v0, u0, iv, iu, use_pallas,
-                                    interpret, "bf16x3")
+        d = _onehot_gather(depth_raw[c], v0, u0, iv, iu) * depth_scale
+        cols = tuple(_onehot_gather(p[c], v0, u0, iv, iu)
                      for p in col_planes)
         flat = vib * W + uib
         kb = min(K, max(64, K // 8))    # near-camera fallback bricks
@@ -1062,9 +984,8 @@ def _nan_field(vol: TSDFVolume) -> jax.Array:
 
     One fused elementwise pass folds the observation mask INTO the value
     stream, so every later sample needs ONE random read instead of two
-    (tsdf + weight). Random reads are the measured raycast cost: XLA's
-    TPU gather runs at ~115 M elements/s flat (scratch probes, r4) —
-    halving the reads halves the march.
+    (tsdf + weight). Random reads dominate the raycast, so halving them
+    halves the march.
     """
     return jnp.where(vol.weight > 0.0, vol.tsdf,
                      jnp.float32(jnp.nan)).reshape(-1)
@@ -1138,11 +1059,9 @@ def _sample_trilinear_soa(flat_field, shape, gx, gy, gz):
 def _project_soa(xc, yc, zc, intr):
     """SoA mirror of ops.deproject.project for ONE camera.
 
-    Same math on separate coordinate planes instead of an [N, 3] array —
-    the [N, 3] layout puts 3 in the 128-lane dimension and runs every
-    elementwise op at ~2% lane utilisation (measured r4: the SoA form of
-    the whole integrate update is 4.8 ms vs ~500 ms AoS). Returns
-    (u, v, in_front)."""
+    Same math on separate coordinate planes instead of an [N, 3] array,
+    so every elementwise op runs over long contiguous planes instead of a
+    minor dimension of 3. Returns (u, v, in_front)."""
     from ..ops.deproject import (DistortionModel,
                                  _distort_inverse_brown_conrady,
                                  _undistort_brown_conrady_iterative)
@@ -1253,8 +1172,8 @@ def _raycast_jit(vol: TSDFVolume, intr: Intrinsics, extrinsics,
     analytic gradient of the trilinear interpolant at the hit cell —
     re-using its 8 corner reads instead of central-differencing six
     extra trilinear samples (96 reads). Coordinates stay in separate
-    x/y/z planes throughout: an [N, 3] layout puts 3 in the lane
-    dimension and runs at ~2% VPU utilisation (r4 probes)."""
+    x/y/z planes throughout, not an [N, 3] layout with a minor
+    dimension of 3."""
     h = -(-intr.height // stride)
     w = -(-intr.width // stride)
     intr_s = _strided_intr(intr, stride, h, w)
@@ -1530,9 +1449,8 @@ def _track_jit(vol: TSDFVolume, depth, intr, T_init, model: RaycastResult,
                        -n_live, n_live)
     n_ok = n_norm[:, 0] > 1e-12
 
-    # SoA planes for the hot per-iteration math: [N, 3] layouts put the
-    # 3 in the lane dimension (~2% VPU utilisation, r4 probes); the
-    # model's validity is folded into its vertex-x plane as NaN so the
+    # SoA planes for the hot per-iteration math (no minor dimension of
+    # 3); the model's validity is folded into its vertex-x plane as NaN so the
     # gather count per iteration drops from 7 to 6
     vmx = jnp.where(model.valid, model.vertex[..., 0],
                     jnp.nan).reshape(-1)
@@ -1574,7 +1492,7 @@ def _track_jit(vol: TSDFVolume, depth, intr, T_init, model: RaycastResult,
         wgt = ok.astype(jnp.float32)
         r = jnp.where(ok, r, 0.0)
         # J = [p_w x n_m, n_m] as six planes; A = Jt W J via one [6,N]
-        # HIGHEST matmul (N in lanes — MXU-friendly)
+        # HIGHEST matmul
         Jt = jnp.stack([pwy * gnmz - pwz * gnmy,
                         pwz * gnmx - pwx * gnmz,
                         pwx * gnmy - pwy * gnmx,
@@ -1595,8 +1513,8 @@ def _track_jit(vol: TSDFVolume, depth, intr, T_init, model: RaycastResult,
         evals, evecs = jnp.linalg.eigh(A)
         lam_max = jnp.maximum(evals[-1], 1e-12)
         keep = evals > 1e-5 * lam_max
-        # eigenbasis products at HIGHEST precision: default-precision
-        # matmul truncates to bf16 (~4e-3 relative) and biases the final
+        # eigenbasis products at HIGHEST precision: default precision may
+        # run in TF32 or bf16 (~1e-3 relative) and biases the final
         # iteration's step (the repo-wide mm() invariant, ops/se3.py)
         coef = jnp.where(keep,
                          mm(evecs.T, b[:, None])[:, 0]

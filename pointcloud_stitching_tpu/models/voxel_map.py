@@ -10,9 +10,9 @@ time, so the rig builds a denoised, ever-completing scene model instead of a
 be re-localized against the accumulated scene rather than a single noisy
 frame.
 
-TPU-first design — the map is three dense arrays and its update is one
-sort + one segment reduction, the exact machinery the per-frame voxel grid
-already uses (ops/voxel.py, kernels/segment_reduce.py):
+Design — the map is three dense arrays and its update is one sort + one
+segment reduction, the exact machinery the per-frame voxel grid already
+uses (ops/voxel.py):
 
   * state: ``ijk`` [cap, 3] absolute voxel indices (int32, sentinel-marked
     empty slots), ``sums`` [cap, 3] weighted coordinate sums, ``weight``
@@ -46,11 +46,10 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ..ops.icp import ICPResult, icp
-from ..ops.voxel import _SENTINEL, _resolve_impl
-from ..utils.types import PointCloud
+from ..ops.voxel import _SENTINEL, _reduce_xla
+from ..utils.types import PointCloud, pytree_dataclass
 
 # per-axis index bias / bound: x packs into the upper half of the 31-bit
 # lexicographic key (15 bits), y/z get 16 bits — matching the per-frame
@@ -61,7 +60,7 @@ _BIAS = np.array([16384, 32768, 32768], np.int32)
 _BOUND = np.array([32766, 65534, 65534], np.int32)
 
 
-@struct.dataclass
+@pytree_dataclass
 class VoxelMap:
     """Fixed-capacity persistent voxel map (see module docstring).
 
@@ -123,20 +122,10 @@ def _keys_from_ijk(ijk: jax.Array) -> tuple[jax.Array, jax.Array]:
     return k1, kz
 
 
-def _reduce(flags, vals, capacity, impl, interpret):
-    impl = _resolve_impl(impl)
-    if impl == "xla":
-        from ..ops.voxel import _reduce_xla
-        return _reduce_xla(flags, vals, capacity)
-    from ..ops.voxel import _reduce_pallas
-    return _reduce_pallas(flags, vals, capacity, interpret)
-
-
 def voxel_map_update(vmap: VoxelMap, cloud: PointCloud,
                      decay: float | jax.Array = 1.0,
                      min_weight: float | jax.Array = 0.05,
-                     max_weight: float | jax.Array = jnp.inf,
-                     impl: str = "auto", interpret: bool = False
+                     max_weight: float | jax.Array = jnp.inf
                      ) -> VoxelMap:
     """Merge one world-frame cloud into the map (pure; state is donated).
 
@@ -155,7 +144,6 @@ def voxel_map_update(vmap: VoxelMap, cloud: PointCloud,
       max_weight: cap on accumulated evidence (sums rescale to preserve the
         mean). Bounds how slowly a long-observed voxel adapts when the
         scene actually changes; inf = pure accumulation.
-      impl/interpret: segment-reduction backend, as in voxel_downsample.
 
     Returns the new map. Occupied voxels beyond capacity drop in ascending
     key order (same discard-bucket policy as the per-frame grid); size
@@ -167,19 +155,15 @@ def voxel_map_update(vmap: VoxelMap, cloud: PointCloud,
     # call structure: jax.jit keys its cache on the positional/keyword
     # shape of the call AND on weak-type/int-vs-float scalar signatures, so
     # without this a user alternating `decay=0.5` with positional 0.99
-    # would recompile the whole Pallas program (~40 s on the TPU, measured)
-    # for the same computation
+    # would recompile the whole update program for the same computation
     return _update_jit(vmap, cloud, jnp.asarray(decay, jnp.float32),
                        jnp.asarray(min_weight, jnp.float32),
-                       jnp.asarray(max_weight, jnp.float32),
-                       impl=impl, interpret=interpret)
+                       jnp.asarray(max_weight, jnp.float32))
 
 
-@partial(jax.jit, static_argnames=("impl", "interpret"),
-         donate_argnames=("vmap",))
+@partial(jax.jit, donate_argnames=("vmap",))
 def _update_jit(vmap: VoxelMap, cloud: PointCloud, decay: jax.Array,
-                min_weight: jax.Array, max_weight: jax.Array,
-                impl: str, interpret: bool) -> VoxelMap:
+                min_weight: jax.Array, max_weight: jax.Array) -> VoxelMap:
     cap = vmap.capacity
     has_rgb = vmap.rgb_sums is not None
     min_w = min_weight
@@ -225,7 +209,7 @@ def _update_jit(vmap: VoxelMap, cloud: PointCloud, decay: jax.Array,
     f = flags.astype(jnp.float32)
     # recover per-axis indices on each segment's first row only (flag-
     # masked: exactly one contribution survives the segment sum). The
-    # biased indices are <= 65534, exact in f32 and under bf16x3 products.
+    # biased indices are <= 65534, exact in f32.
     iy = jnp.where(valid, sk1, 0) % 65536
     ix = jnp.where(valid, sk1, 0) // 65536
     iz = jnp.where(valid, skz, 0)
@@ -233,7 +217,7 @@ def _update_jit(vmap: VoxelMap, cloud: PointCloud, decay: jax.Array,
     vals = jnp.concatenate([idx_ch, jnp.where(valid[:, None], svals, 0.0)],
                            axis=-1)                 # [cap+N, 7(+3)]
 
-    sums = _reduce(flags, vals, cap, impl, interpret)
+    sums = _reduce_xla(flags, vals, cap)
 
     # -- finalize new state
     out_w = sums[:, 6]
@@ -340,19 +324,16 @@ class TemporalAccumulator:
 
     def __init__(self, capacity: int, leaf: float, decay: float = 1.0,
                  min_weight: float = 0.05, max_weight: float = jnp.inf,
-                 with_rgb: bool = False, impl: str = "auto",
-                 interpret: bool = False):
+                 with_rgb: bool = False):
         self.state = VoxelMap.create(capacity, leaf, with_rgb=with_rgb)
         self._decay = decay
         self._min_weight = min_weight
         self._max_weight = max_weight
-        self._update = partial(voxel_map_update, impl=impl,
-                               interpret=interpret)
 
     def update(self, cloud: PointCloud) -> None:
         """Absorb one world-frame cloud (donates the old state buffer)."""
-        self.state = self._update(self.state, cloud, self._decay,
-                                  self._min_weight, self._max_weight)
+        self.state = voxel_map_update(self.state, cloud, self._decay,
+                                      self._min_weight, self._max_weight)
 
     def cloud(self, min_weight: float | jax.Array = 0.0) -> PointCloud:
         return self.state.as_cloud(min_weight)
@@ -367,8 +348,7 @@ class TemporalAccumulator:
     @classmethod
     def load(cls, path: str, capacity: int | None = None,
              decay: float = 1.0, min_weight: float = 0.05,
-             max_weight: float = jnp.inf, impl: str = "auto",
-             interpret: bool = False) -> "TemporalAccumulator":
+             max_weight: float = jnp.inf) -> "TemporalAccumulator":
         """Resume from a ``save`` checkpoint. ``leaf``/``with_rgb`` come
         from the file (a map can't change grids mid-life); the update
         policy knobs are per-session and passed fresh."""
@@ -377,6 +357,4 @@ class TemporalAccumulator:
         acc._decay = decay
         acc._min_weight = min_weight
         acc._max_weight = max_weight
-        acc._update = partial(voxel_map_update, impl=impl,
-                              interpret=interpret)
         return acc

@@ -1,7 +1,7 @@
 """Spatial change detection: which query points occupy voxels the
 reference never touched.
 
-TPU-native role of ``pcl::OctreePointCloudChangeDetector`` (the
+On-device role of ``pcl::OctreePointCloudChangeDetector`` (the
 double-buffered octree whose ``getPointIndicesFromNewVoxels`` reports
 points of cloud B falling in voxels absent from cloud A). The reference
 system has no change detection (it re-fuses every frame from scratch;
@@ -21,7 +21,7 @@ one fused sort-and-scan, the same machinery as the voxel downsample:
 
 Everything is fixed-shape (padded buffers + masks), the leaf is traced,
 and the cost is one 4-operand sort of cap_ref + cap_query rows — the
-sorted diff replaces pointer-chasing tree traversal with the TPU's fast
+sorted diff replaces pointer-chasing tree traversal with the accelerator's fast
 primitive, exactly as voxel_downsample replaces the voxel hash map.
 """
 from __future__ import annotations

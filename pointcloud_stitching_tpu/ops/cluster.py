@@ -1,9 +1,9 @@
 """Euclidean cluster extraction on fixed-shape clouds.
 
-TPU-native role of ``pcl::EuclideanClusterExtraction`` (the canonical step
+On-device role of ``pcl::EuclideanClusterExtraction`` (the canonical step
 after plane removal: split the remaining scene into objects). PCL grows
 clusters point by point through KD-tree radius searches — a serial,
-pointer-chasing algorithm. The TPU formulation is grid connectivity plus
+pointer-chasing algorithm. The accelerator formulation is grid connectivity plus
 parallel label propagation:
 
   1. quantize to a voxel grid at leaf = ``tolerance``: any two points
@@ -368,7 +368,7 @@ def oriented_bboxes(pc: PointCloud, labels: jax.Array,
                     max_clusters: int = 16):
     """Per-cluster oriented bounding boxes from covariance eigenvectors.
 
-    TPU-native role of ``pcl::MomentOfInertiaEstimation::getOBB`` run per
+    On-device role of ``pcl::MomentOfInertiaEstimation::getOBB`` run per
     extracted cluster (the object-analysis step after clustering: a tight
     box even when the object is rotated, where the AABB of
     ``cluster_stats`` over-covers). All clusters are solved at once: one

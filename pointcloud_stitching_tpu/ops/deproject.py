@@ -1,6 +1,6 @@
 """Depth-image → 3-D point deprojection.
 
-TPU-native equivalent of the reference's on-camera-node deprojection
+On-device equivalent of the reference's on-camera-node deprojection
 (reference: src/pcs-camera-server.cpp, ``rs2::pointcloud::calculate``, which
 calls librealsense's ``rs2_deproject_pixel_to_point``; see SURVEY.md §2.2 row 1).
 
@@ -13,8 +13,8 @@ The math (librealsense, public):
 Pixels with zero depth produce masked-out points (the reference's pack loop
 sends them as zeros; downstream PCL ops ignore NaN/zero points).
 
-Everything is a pure elementwise map over the [H, W] grid — on TPU this is a
-single fused VPU pass, batched over the camera axis. No per-pixel loop exists
+Everything is a pure elementwise map over the [H, W] grid — on the device this
+is a single fused elementwise pass, batched over the camera axis. No per-pixel loop exists
 anywhere (contrast with the reference's hot pack loop, SURVEY.md §3.1).
 """
 from __future__ import annotations
@@ -230,7 +230,7 @@ def deproject_with_color(depth: jax.Array, color: jax.Array, intr: Intrinsics,
 
     The reference maps color via texture coordinates (rs2::pointcloud::map_to,
     src/pcs-camera-server.cpp); with depth-aligned color streams this reduces
-    to a per-pixel lookup, which is the form we keep on TPU.
+    to a per-pixel lookup, which is the form we keep on device.
 
     color: [..., H, W, 3] uint8.
     """

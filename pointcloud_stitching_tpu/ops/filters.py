@@ -6,7 +6,7 @@ stack expects around the stitching loop (PCL: ``pcl::PassThrough``,
 applies only VoxelGrid — SURVEY.md §2.2 row 3 — but its PCL ecosystem
 makes these the standard pre/post-processing vocabulary).
 
-TPU-native design: filters never change shapes — they only clear validity
+Design: filters never change shapes — they only clear validity
 mask bits (fixed-shape padded buffers are the framework's invariant), so
 they compose freely inside one jitted program with zero recompiles.
 ``fuse.compact`` re-packs survivors when a dense cloud is wanted.
@@ -225,11 +225,11 @@ def bilateral_depth(depth: jax.Array, sigma_spatial=3.0, sigma_range=0.03,
                     ) -> jax.Array:
     """Edge-preserving smoothing of an organized depth image.
 
-    TPU-native role of ``pcl::FastBilateralFilter`` (PCL's organized-cloud
+    On-device role of ``pcl::FastBilateralFilter`` (PCL's organized-cloud
     denoiser; the reference sends raw sensor depth — SURVEY.md §3.1 — and
     D400 depth carries ~0.5-2% range noise that survives into the fused
     cloud). PCL approximates the bilateral with a downsampled bilateral
-    grid because exact windows are slow on a CPU; on a TPU the direct
+    grid because exact windows are slow on a CPU; on an accelerator the direct
     form IS the fast form — a (2*radius+1)^2 stack of statically shifted
     image reads, each a fused multiply-add over the whole [H, W] plane on
     the VPU, ~50 MB of HBM traffic per megapixel at the default radius.

@@ -1,6 +1,6 @@
 """Fast Point Feature Histograms on fixed-shape clouds.
 
-TPU-native role of ``pcl::FPFHEstimation`` — the 33-dimensional local-geometry
+On-device role of ``pcl::FPFHEstimation`` — the 33-dimensional local-geometry
 descriptor behind PCL's automatic coarse alignment
 (``pcl::SampleConsensusInitialAlignment``; the reference's registration tool
 is pick-based, SURVEY.md §3.4, and models/registration.py's ``register_global``
@@ -9,7 +9,7 @@ that survives scene symmetry, where geometry-only starts can lock onto the
 wrong lobe).
 
 PCL computes FPFH through a KD-tree radius search and ragged per-point
-neighbor lists — pointer-chasing that does not map to fixed shapes. The TPU
+neighbor lists — pointer-chasing that does not map to fixed shapes. The accelerator
 formulation keeps the published math (Rusu et al., ICRA 2009) but restates
 both passes as blockwise all-pairs sweeps, the same [query_tile x ref_tile]
 pattern as ops/nn.py and ops/mls.py:
@@ -19,8 +19,8 @@ pattern as ops/nn.py and ops/mls.py:
     histograms accumulate via one-hot reductions — no neighbor lists, no
     scatter.
   pass 2 (weighting): FPFH_i = SPFH_i + (1/k_i) sum_j (1/d2_ij) SPFH_j is a
-    masked [qt, rt] weight matrix times the [rt, 33] SPFH block — a matmul on
-    the MXU.
+    masked [qt, rt] weight matrix times the [rt, 33] SPFH block — one matrix
+    product.
 
 Descriptor layout: bins [0:11] = alpha, [11:22] = phi, [22:33] = theta, where
 for each neighbor pair the *source* endpoint s is the one whose normal makes
@@ -161,7 +161,7 @@ def fpfh(pc: PointCloud, normals: jax.Array,
         # neighbors' SPFH enter pre-normalised (PCL divides each by its own
         # pair count), so sparse and dense neighbors weigh equally
         nrm = spfh_blk / jnp.maximum(k_blk, 1.0)[:, None]
-        acc = jnp.matmul(w, nrm, precision="highest")     # [qt, 33] on MXU
+        acc = jnp.matmul(w, nrm, precision="highest")     # [qt, 33]
         return acc, jnp.sum(inside.astype(jnp.float32), axis=1)
 
     wsum, kn = _blockwise(pc.xyz, valid, [spfh, k], query_tile, ref_tile,
@@ -185,7 +185,7 @@ def match_fpfh(desc_a: jax.Array, ok_a: jax.Array,
     """k nearest descriptors in B for every descriptor in A.
 
     Running top-k over ref tiles (the ops.filters.knn_mean_distance pattern),
-    cross terms on the MXU. Invalid B rows never match; invalid A rows return
+    cross terms as a matrix product. Invalid B rows never match; invalid A rows return
     sentinel distances (~1e12).
 
     Returns (idx [N, k] int32 into B, d2 [N, k] ascending).

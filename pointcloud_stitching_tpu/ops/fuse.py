@@ -1,6 +1,6 @@
 """Multi-cloud fusion (concatenation) on padded buffers.
 
-TPU-native equivalent of ``pcl::PointCloud::operator+=`` concatenation in the
+On-device equivalent of ``pcl::PointCloud::operator+=`` concatenation in the
 reference's render loop (src/pcs-multicamera-client.cpp; SURVEY.md §3.2).
 With fixed-capacity padded clouds, fusion is a reshape/concat — the masks do
 the bookkeeping, so a dropped camera (all-False mask) costs nothing

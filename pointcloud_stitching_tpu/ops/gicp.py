@@ -1,6 +1,6 @@
 """Generalized ICP (plane-to-plane), fully on-device.
 
-TPU-native role of ``pcl::GeneralizedIterativeClosestPoint`` (Segal et
+On-device role of ``pcl::GeneralizedIterativeClosestPoint`` (Segal et
 al., RSS 2009) — the registration-family member between point-to-point
 and point-to-plane: every point on BOTH clouds carries a surface
 covariance (disc-shaped: free to slide in its tangent plane, stiff along
@@ -12,7 +12,7 @@ metric of the combined covariance
 
 PCL's loop is serial per correspondence (KD-tree search, per-point BFGS
 cost terms); here every stage is batched: the NN search is the shared
-tiled MXU sweep (ops/nn.py / kernels/nn_pallas.py), the N combined 3x3
+tiled sweep (ops/nn.py / kernels/nn_pallas.py), the N combined 3x3
 covariances invert in one batched solve, and the SE(3) update is one
 6x6 Gauss-Newton step from einsum-reduced normal equations — the same
 shape as the point-to-plane solver (ops/icp.py), of which GICP is the

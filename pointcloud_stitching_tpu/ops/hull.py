@@ -3,7 +3,7 @@
 The reference never computes hulls, but its downstream PCL toolchain does
 (hull extraction after plane projection is the canonical pcl tutorial
 pipeline — see ops/sac.py's project_plane, whose output exists to feed
-exactly this). TPU-first split of the work:
+exactly this). Split of the work:
 
 - The O(N·D) part — finding the cloud's support point in D sampled
   directions — is a blockwise [block,3]x[3,D] matmul with a running

@@ -1,9 +1,9 @@
 """Iterative Closest Point, fully on-device.
 
-TPU-native equivalent of ``pcl::IterativeClosestPoint::align`` (reference:
+On-device equivalent of ``pcl::IterativeClosestPoint::align`` (reference:
 registration/ tool; SURVEY.md §2.2 row 7 and §3.4). PCL's CPU loop
 (KD-tree correspondences → SVD solve → repeat until epsilon/max-iter) becomes
-a ``lax.fori_loop`` whose body is: tiled brute-force NN on the MXU →
+a ``lax.fori_loop`` whose body is: tiled brute-force NN →
 max-distance correspondence rejection → weighted Kabsch. Fixed iteration
 count keeps the program jit-static; a while_loop variant with PCL-style
 transformation-epsilon termination is provided for offline registration.
@@ -16,6 +16,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ..utils.platform import kernel_impl
 from ..utils.types import PointCloud
 from .kabsch import kabsch
 from .nn import nearest_neighbors
@@ -42,28 +43,15 @@ def _make_nn_batched(dst: PointCloud, query_tile: int, ref_tile: int,
                      nn_impl: str, nn_interpret: bool):
     """Resolve the batched-NN backend once per ICP call: nn(p)->(idx, d2).
 
-    One definition for both batched ICP variants (they used to carry
-    diverging copies). On the Pallas path the reference cloud is
-    loop-invariant, so it is padded/transposed ONCE here; the ref-block
-    width mirrors ops/nn.py's measured size switch — short sweeps want
-    2048 (drift stage 7.75 -> 6.09 ms) but long sweeps want 1024 (the
-    8 MB distance intermediate stalls double buffering: 121 vs 169 ms at
-    131k refs). query_tile is honored by the kernel; ref_tile is an XLA
-    tiling knob with no Pallas meaning — the kernel's ref-block width is
-    the measured switch, deliberately NOT ref_tile.
+    On the Pallas path the reference cloud is loop-invariant, so it is
+    masked and padded once here. query_tile/ref_tile tile the XLA sweep;
+    the kernel keeps its own tile sizes.
     """
-    impl = nn_impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl == "pallas":
-        from ..kernels.nn_pallas import (nn_batched_prepared,
-                                         prepare_ref_batched)
-        rb = 2048 if dst.xyz.shape[1] <= 8192 else 1024
-        rT, rsq = prepare_ref_batched(dst.xyz, dst.mask, ref_block=rb)
-        return lambda p: nn_batched_prepared(p, rT, rsq, ref_block=rb,
-                                             num_ref=dst.xyz.shape[1],
-                                             query_tile=query_tile,
-                                             interpret=nn_interpret)
+    if kernel_impl(nn_impl, nn_interpret) == "pallas":
+        from ..kernels.nn_pallas import nn_prepared, prepare_ref
+        planes = prepare_ref(dst.xyz, dst.mask)
+        return lambda p: nn_prepared(p, planes, num_ref=dst.xyz.shape[1],
+                                     interpret=nn_interpret)
     return lambda p: _nn_batched_xla(p, dst.xyz, dst.mask,
                                      query_tile, ref_tile)
 
@@ -212,9 +200,7 @@ def _icp_step(T, src_xyz, src_mask, dst_xyz, dst_mask, max_dist2,
               query_tile, ref_tile, nn_impl, trim_fraction=0.0,
               prune=False):
     p = se3_apply(T, src_xyz)
-    impl = nn_impl
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+    impl = kernel_impl(nn_impl)
     if prune and impl == "pallas":
         from ..kernels.nn_pallas import nearest_neighbors_pruned
         idx, d2 = nearest_neighbors_pruned(
@@ -242,11 +228,10 @@ def icp(src: PointCloud, dst: PointCloud, init_T: jax.Array | None = None,
         prune: bool = False) -> ICPResult:
     """Fixed-iteration ICP (streaming-friendly: constant cost per frame).
 
-    prune=True uses key-range-pruned NN (exact; ~5x at 100k-point scale on
-    voxel-sorted clouds — see kernels.nn_pallas.nearest_neighbors_pruned).
-    Pruning requires the Pallas/TPU backend: if the resolved backend is not
-    pallas (CPU run, or nn_impl="xla"), it silently falls back to the
-    unpruned brute-force NN — same results, no speedup.
+    prune=True uses the key-range-pruned NN kernel (exact on voxel-sorted
+    clouds — see kernels.nn_pallas.nearest_neighbors_pruned). Pruning needs
+    the Pallas kernel: where nn_impl resolves to XLA (no GPU, or
+    nn_impl="xla") it runs the unpruned brute-force NN — same results.
     """
     if init_T is None:
         init_T = jnp.eye(4, dtype=jnp.float32)
@@ -280,7 +265,7 @@ def icp_converge(src: PointCloud, dst: PointCloud,
     """ICP with PCL-style termination: stop when the incremental transform's
     deviation from identity drops below ``transformation_epsilon`` (Frobenius
     norm squared) or after ``max_iterations``. Offline-registration variant.
-    prune=True only takes effect on the Pallas/TPU backend (see ``icp``).
+    prune=True only takes effect on the Pallas kernel (see ``icp``).
     """
     if init_T is None:
         init_T = jnp.eye(4, dtype=jnp.float32)
@@ -298,8 +283,9 @@ def icp_converge(src: PointCloud, dst: PointCloud,
                                   trim_fraction, prune)
         from .se3 import se3_inverse
         # rigid inverse: transpose + negate, exact. mm (HIGHEST), not `@`:
-        # a default bf16 product rounds dT's entries at ~4e-3, so delta
-        # floors near 1e-5 and epsilon termination never fires on TPU
+        # a reduced-precision product (bf16 or TF32) rounds dT's entries at
+        # ~1e-3, so delta floors near 1e-5 and epsilon termination never
+        # fires
         dT = mm(T2, se3_inverse(T))
         delta = jnp.sum((dT - eye) ** 2)
         return (T2, err, n_in, it + 1, delta)

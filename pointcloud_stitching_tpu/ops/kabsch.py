@@ -1,6 +1,6 @@
 """Weighted Kabsch / Umeyama rigid alignment via SVD.
 
-TPU-native equivalent of ``pcl::registration::TransformationEstimationSVD``
+On-device equivalent of ``pcl::registration::TransformationEstimationSVD``
 (reference: registration/ tool; SURVEY.md §2.2 row 6). The whole solve is a
 masked reduction to a 3x3 cross-covariance (one matmul) followed by a 3x3 SVD
 — tiny, fully on-device, differentiable, and batchable with vmap.
@@ -30,7 +30,7 @@ def kabsch(src: jax.Array, dst: jax.Array, weights: jax.Array) -> jax.Array:
     cd = jnp.sum(w[:, None] * dst, axis=0) / denom
     s = src - cs
     d = dst - cd
-    # H = sum_i w_i s_i d_i^T  (3x3) — one [3,N]x[N,3] matmul on the MXU
+    # H = sum_i w_i s_i d_i^T  (3x3) — one [3,N]x[N,3] matmul
     H = jnp.einsum("ni,nj->ij", w[:, None] * s, d, precision="highest")
     U, _, Vt = jnp.linalg.svd(H)
     det = jnp.linalg.det(mm(Vt.T, U.T))

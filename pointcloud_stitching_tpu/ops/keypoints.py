@@ -1,6 +1,6 @@
 """Intrinsic Shape Signatures keypoint detection on fixed-shape clouds.
 
-TPU-native role of ``pcl::ISSKeypoint3D`` (Zhong, ICCV-W 2009) — the
+On-device role of ``pcl::ISSKeypoint3D`` (Zhong, ICCV-W 2009) — the
 standard detector in PCL's keypoints -> descriptors -> correspondences
 pipeline: keep only points whose local neighborhood has genuinely 3-D
 structure (three well-separated scatter eigenvalues), then thin them to

@@ -1,6 +1,6 @@
 """Triangle meshing of organized clouds.
 
-TPU-native role of ``pcl::OrganizedFastMesh``: depth frames are organized
+On-device role of ``pcl::OrganizedFastMesh``: depth frames are organized
 grids, so surface triangulation needs no Delaunay/greedy search at all —
 every 2x2 pixel quad contributes (up to) two triangles, and the whole
 mesh is one elementwise validity computation over the grid:

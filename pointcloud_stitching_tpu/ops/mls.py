@@ -1,6 +1,6 @@
 """Moving-least-squares surface smoothing on fixed-shape clouds.
 
-TPU-native role of ``pcl::MovingLeastSquares`` (plane-projection mode —
+On-device role of ``pcl::MovingLeastSquares`` (plane-projection mode —
 the sensor-noise smoother PCL users run before meshing/normals). PCL
 builds an explicit neighbor list per point through a KD-tree radius
 search and fits each local surface serially; neither the tree nor the
@@ -71,7 +71,7 @@ def _radius_moments(xyz, mask, radius, sg, query_tile, ref_tile):
             # whole cm-scale covariance). Displacements are radius-sized,
             # so every accumulated square is computed at full relative
             # precision. (HIGHEST — the covariance decides each plane
-            # normal; CLAUDE.md bf16 rule.)
+            # normal; CLAUDE.md precision rule.)
             swd = swd - jnp.einsum("qr,qri->qi", w, d,
                                    precision="highest")
             swddt = swddt + jnp.einsum("qr,qri,qrj->qij", w, d, d,

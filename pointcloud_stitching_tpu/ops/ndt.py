@@ -1,6 +1,6 @@
 """Normal Distributions Transform registration, fully on-device.
 
-TPU-native role of ``pcl::NormalDistributionsTransform`` (Biber &
+On-device role of ``pcl::NormalDistributionsTransform`` (Biber &
 Strasser 2003; Magnusson's 3D formulation) — the scan-to-map
 registration family member: the target cloud becomes a grid of local
 Gaussians (one mean + covariance per occupied cell), and a pose is
@@ -10,7 +10,7 @@ which is why NDT is the classic choice for repeated localization
 against a persistent map.
 
 PCL's build is a per-cell accumulation loop and its optimizer is a
-serial Newton iteration with hand-derived gradients. The TPU
+serial Newton iteration with hand-derived gradients. The accelerator
 formulation:
 
   map build (``ndt_build``): one sort of the cell keys + segment sums

@@ -1,14 +1,14 @@
-"""Brute-force nearest-neighbour correspondence search, tiled for TPU.
+"""Brute-force nearest-neighbour correspondence search, tiled.
 
-TPU-native replacement for ``pcl::KdTreeFLANN`` inside PCL's ICP (reference:
+Accelerator replacement for ``pcl::KdTreeFLANN`` inside PCL's ICP (reference:
 registration/ tool, ``pcl::IterativeClosestPoint``; SURVEY.md §2.2 row 5).
 
-A KD-tree is pointer-chasing and branch-heavy — the worst possible fit for a
-systolic array. The TPU-native formulation is a tiled distance-matrix sweep:
+A KD-tree is pointer-chasing and branch-heavy. The data-parallel formulation
+is a tiled distance-matrix sweep:
 
     d2[i, j] = |q_i|^2 + |r_j|^2 - 2 q_i . r_j
 
-where the cross term is a matmul on the MXU. The full N x M matrix is never
+where the cross term is a matrix product. The full N x M matrix is never
 materialised (100k x 100k would be 40 GB): we sweep reference tiles with a
 running (best_d2, best_idx) pair, and query tiles via an outer ``lax.map``.
 Intermediates stay at [query_tile x ref_tile].
@@ -22,6 +22,8 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+from ..utils.platform import kernel_impl
 
 _FAR = 1e12  # coordinate sentinel for invalid reference points
 
@@ -46,29 +48,18 @@ def nearest_neighbors(query: jax.Array, ref: jax.Array,
       query: [N, 3] float32.
       ref: [M, 3] float32.
       ref_mask: [M] bool; invalid reference points are never matched.
-      impl: 'auto' | 'pallas' | 'xla'. 'auto' picks the Pallas MXU kernel on
-        TPU (kernels/nn_pallas.py) and the portable XLA sweep elsewhere.
+      query_tile/ref_tile: tiling of the XLA sweep (the Pallas kernel keeps
+        its own tile sizes).
+      impl: 'auto' | 'pallas' | 'xla', resolved by
+        utils.platform.kernel_impl ('auto' is the kernel on a GPU).
+      interpret: run the Pallas kernel in interpret mode (CPU tests).
     Returns:
       (idx [N] int32, d2 [N] float32). If every ref point is masked out the
       distances are ~_FAR^2; callers gate on that via their own masks.
     """
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl == "pallas":
+    if kernel_impl(impl, interpret) == "pallas":
         from ..kernels.nn_pallas import nearest_neighbors_pallas
-        # compiled mode needs 1024-wide 1-D output tiles, and the
-        # [query_tile x ref_block] distance intermediate must stay well
-        # under the 16 MB VMEM budget (1024x2048 f32 = 8 MB). Ref block
-        # width is sweep-length dependent (measured on v5e): short sweeps
-        # want 2048 (fewer DMA waits/min passes: drift stage 7.75 ->
-        # 6.09 ms) but long sweeps want 1024 (121 vs 169 ms at 131k —
-        # the 8 MB intermediate stalls the double buffering); interpret
-        # mode (CPU tests) honours the caller's tiles
-        qt = query_tile if interpret else 1024
-        rb = ref_tile if interpret else (2048 if ref.shape[0] <= 8192
-                                         else 1024)
         return nearest_neighbors_pallas(query, ref, ref_mask,
-                                        query_tile=qt, ref_block=rb,
                                         interpret=interpret)
     n, m = query.shape[0], ref.shape[0]
     if ref_mask is None:
@@ -90,9 +81,9 @@ def nearest_neighbors(query: jax.Array, ref: jax.Array,
         def body(carry, tile):
             best_d2, best_idx = carry
             rt, rsqt, tile_i = tile
-            # precision='highest' keeps the MXU in full-f32 passes: the
-            # |q|^2+|r|^2-2qr decomposition amplifies bf16 rounding into
-            # centimetre-scale distance errors otherwise (PCL parity breaks).
+            # precision='highest' keeps the product in full f32 (no TF32 or
+            # bf16 passes): the |q|^2+|r|^2-2qr decomposition amplifies
+            # their rounding into centimetre-scale distance errors.
             cross = jnp.dot(q, rt.T, preferred_element_type=jnp.float32,
                             precision="highest")
             d2 = q_sq[:, None] + rsqt[None, :] - 2.0 * cross  # [QT, RT]

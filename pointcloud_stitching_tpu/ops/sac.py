@@ -1,13 +1,13 @@
 """Sample-consensus plane segmentation on fixed-shape clouds.
 
-TPU-native equivalent of ``pcl::SACSegmentation<pcl::PointXYZ>`` with
+On-device equivalent of ``pcl::SACSegmentation<pcl::PointXYZ>`` with
 ``SACMODEL_PLANE`` + ``pcl::ExtractIndices`` (the staple PCL workflow this
 class of stitching rig uses to drop the floor/walls from a fused scene;
 the reference leaves it to downstream PCL — SURVEY.md §2.2 lists the
 compute-path ops this composes with).
 
 PCL's RANSAC draws hypotheses *sequentially* until an inlier ratio is
-reached; a TPU inverts that: draw EVERY hypothesis up front (a [M, 3]
+reached; an accelerator inverts that: draw EVERY hypothesis up front (a [M, 3]
 index sample), evaluate all of them against all points as one batched
 distance computation (an [M, 3] x [3, N] matmul — plane evaluation IS a
 dot product), and argmax the inlier counts. Degenerate samples (collinear
@@ -52,8 +52,9 @@ def _count_inliers(models, xyz, mask, threshold, chunk):
     def body(carry, xm):
         x, msk = xm
         # distance of every point to every plane: one [M,3]x[3,chunk] dot.
-        # HIGHEST precision: bf16 MXU passes err at ~1 cm for meter-scale
-        # points — the same magnitude as a typical inlier threshold
+        # HIGHEST precision: reduced-precision (bf16/TF32) passes err at
+        # ~1 cm for meter-scale points — the same magnitude as a typical
+        # inlier threshold
         # (CLAUDE.md precision rule; CPU tests cannot catch a violation)
         dist = jnp.abs(jnp.matmul(m4[:, :3], x.T, precision="highest")
                        + m4[:, 3:4])                      # [M, chunk]
@@ -156,7 +157,7 @@ def extract_plane(pc: PointCloud, model: jax.Array, threshold,
 def project_plane(pc: PointCloud, model: jax.Array) -> PointCloud:
     """Project every valid point onto a plane model.
 
-    TPU-native role of ``pcl::ProjectInliers`` with ``SACMODEL_PLANE``
+    On-device role of ``pcl::ProjectInliers`` with ``SACMODEL_PLANE``
     (PCL's flatten-the-inliers step between segmentation and 2-D
     processing like hull extraction): ``p' = p - (n.p + d) n`` with the
     model normalized first. Mask and row order are preserved, so labels

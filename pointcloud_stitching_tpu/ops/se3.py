@@ -1,12 +1,12 @@
 """SE(3) rigid transforms on padded point clouds.
 
-TPU-native equivalent of ``pcl::transformPointCloud`` with the per-camera
+On-device equivalent of ``pcl::transformPointCloud`` with the per-camera
 4x4 ``.cal`` extrinsics (reference: src/pcs-multicamera-client.cpp, Eigen
 ``Matrix4f`` loaded from .cal files; SURVEY.md §2.2 row 2).
 
 ``R @ p + t`` is expressed as one [N,3]x[3,3] matmul plus a broadcast add so
 XLA fuses it with neighbouring elementwise work (and, batched over cameras,
-it maps straight onto the MXU).
+it is one batched matrix product).
 """
 from __future__ import annotations
 
@@ -17,10 +17,11 @@ from ..utils.types import PointCloud
 
 
 def mm(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Matmul at HIGHEST precision. TPU's default matmul pass truncates
-    operands to bf16, which rounds rotation-matrix entries at ~4e-3 —
-    catastrophic for composed extrinsics (measured: kabsch recovered R with
-    4e-3 max error through default-precision 3x3 products, 1e-6 with this).
+    """Matmul at HIGHEST precision. A default-precision f32 matmul may run
+    in TF32 on a GPU (10-bit mantissa) or bf16 elsewhere, which rounds
+    rotation-matrix entries at ~1e-3 — catastrophic for composed
+    extrinsics (kabsch recovered R with ~4e-3 max error through bf16 3x3
+    products, 1e-6 with this).
     Every transform composition in the library routes through here."""
     return jnp.matmul(a, b, precision="highest")
 

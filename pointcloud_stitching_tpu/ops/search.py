@@ -4,9 +4,9 @@ PCL programs query `nearestKSearch` / `radiusSearch` directly (the
 reference itself only uses the tree indirectly, inside
 pcl::IterativeClosestPoint — SURVEY.md §2.2 row "NN correspondence" —
 but any migrating PCL user reaches for these entry points). There is no
-tree on a TPU: both searches are blockwise exact sweeps with a running
+tree on an accelerator: both searches are blockwise exact sweeps with a running
 top-k merge, the same pattern as kernels/nn_pallas.py and
-ops/filters.py's k-NN statistic, so the MXU/VPU replace traversal and
+ops/filters.py's k-NN statistic, so dense matrix and vector work replaces traversal and
 the output shapes are static.
 
 Conventions follow PCL: squared distances, results sorted ascending,

@@ -1,6 +1,6 @@
 """Isosurface reconstruction from a scalar field / the accumulated voxel map.
 
-TPU-native role of ``pcl::MarchingCubes`` (Hoppe/RBF variants): turn the
+On-device role of ``pcl::MarchingCubes`` (Hoppe/RBF variants): turn the
 persistent scene model into a *surface* — a triangle mesh — instead of a
 point set. The reference system never reconstructs surfaces (its viewer
 draws raw points; reference: src/pcs-multicamera-client.cpp render loop,
@@ -106,16 +106,14 @@ def marching_tetrahedra(field: jax.Array, iso, cell_capacity: int,
         boundaries — observed surface meeting never-observed space —
         don't grow fake walls).
       chunk: static cells processed per ``lax.map`` step. Bounds the
-        padded size of the per-cell geometry temporaries (TPU tiles the
-        two minor dims to (8, 128), so tiny-trailing-dim shapes like
-        [cells, 6, 2, 3, 3] occupy ~42× their logical bytes in HBM —
-        measured: unchunked extraction at 2^19 cells asks for 27 GB).
+        padded size of the per-cell geometry temporaries (unchunked
+        extraction at 2^19 cells asks for tens of GB).
 
     Returns ``(verts, valid, n_active)``:
       verts: [3, 3, cell_capacity·12] f32 — ``verts[i, j, t]`` is world
         coordinate j of corner i of triangle t (coordinate-major SoA:
-        the triangle axis is minor so the buffer tiles cleanly on TPU;
-        the AoS [T, 3, 3] layout would pad 42×). Host code converts with
+        the triangle axis is minor, so every plane is one long contiguous
+        run instead of an AoS [T, 3, 3] layout with tiny minor dims). Host code converts with
         ``soup_triangles(verts, valid)``. Triangles wind so normals
         point outward (away from the inside region).
       valid: [cell_capacity·12] bool — real triangles.
@@ -163,10 +161,9 @@ def marching_tetrahedra(field: jax.Array, iso, cell_capacity: int,
     # (tet t, triangle slot s, triangle vertex v): the cube-corner ids of
     # the slot's edge endpoints for every case. Composing
     # case→edge→corner at trace time turns the kernel's chained runtime
-    # gathers into 15-deep where-chains over [36, chunk] planes — the
-    # AoS form's [chunk,6,2,3,3] temporaries tiled at ~42× on TPU (the
-    # (3,3) minor dims pad to (8,128)) and made this extractor ~25×
-    # slower than the same arithmetic in slot-major layout.
+    # gathers into 15-deep where-chains over [36, chunk] planes, in a
+    # slot-major layout instead of [chunk,6,2,3,3] temporaries whose
+    # tiny minor dims pad badly in device memory.
     _ts = [(n // 6, (n // 3) % 2, n % 3) for n in range(36)]
     a36 = np.zeros((16, 36), np.int32)
     b36 = np.zeros((16, 36), np.int32)

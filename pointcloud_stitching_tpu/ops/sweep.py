@@ -3,8 +3,8 @@
 The framework's standard substitute for PCL's KD-tree radius searches:
 instead of per-point ragged neighbor lists, evaluate the query x reference
 interaction one [query_tile x ref_tile] block at a time and ACCUMULATE —
-fixed shapes, contiguous loads, broadcasts on the VPU / matmuls on the
-MXU, never an [N, N] intermediate. ops/nn.py, ops/mls.py, ops/filters.py
+fixed shapes, contiguous loads, broadcasts and matmuls,
+never an [N, N] intermediate. ops/nn.py, ops/mls.py, ops/filters.py
 and ops/cluster.py each hand-roll the pattern where their accumulators are
 bespoke; this driver serves the ops whose per-block step is pluggable
 (FPFH's histogram passes, ISS's density-weighted scatter matrices).

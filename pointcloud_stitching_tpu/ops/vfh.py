@@ -1,6 +1,6 @@
 """Viewpoint Feature Histogram — one global descriptor per cloud/object.
 
-TPU-native role of ``pcl::VFHEstimation`` (Rusu et al., IROS 2010): where
+On-device role of ``pcl::VFHEstimation`` (Rusu et al., IROS 2010): where
 FPFH describes a POINT's neighborhood, VFH describes a whole segmented
 object with a single 308-dim vector — the classic recognition pipeline is
 ``pcs-segment``-style cluster extraction, then one VFH per cluster, then

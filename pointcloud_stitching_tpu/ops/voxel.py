@@ -1,6 +1,6 @@
 """Voxel-grid downsampling with fixed-capacity output.
 
-TPU-native equivalent of ``pcl::VoxelGrid<pcl::PointXYZRGB>`` (reference:
+On-device equivalent of ``pcl::VoxelGrid<pcl::PointXYZRGB>`` (reference:
 src/pcs-multicamera-client.cpp applies it to the fused cloud before rendering;
 SURVEY.md §2.2 row 3).
 
@@ -10,18 +10,10 @@ contract):
   * one output point per occupied voxel = centroid (mean) of its points
   * output ordered by ascending (ix, iy, iz)
 
-TPU has no hash maps, so uniquing is sort-based: ``lax.sort`` with a
-two-key lexicographic voxel key (packed (ix,iy), then iz — avoids the
-reference's int32 linearised-index overflow), then a segment boundary pass,
-then per-segment mean. The segment reduction has two interchangeable
-backends:
-
-  * 'pallas' (default on TPU): the scatter-free sequential-grid kernel in
-    kernels/segment_reduce.py — XLA's scatter-add costs ~170 ms for the
-    8-camera workload on v5e; the kernel replaces it with MXU one-hot
-    matmuls and windowed VMEM accumulation.
-  * 'xla': jax.ops.segment_sum — portable, fast on CPU, the correctness
-    reference for the kernel.
+Uniquing is sort-based: ``lax.sort`` with a two-key lexicographic voxel
+key (packed (ix,iy), then iz — avoids the reference's int32 linearised-index
+overflow), then a segment boundary pass, then per-segment mean through
+``jax.ops.segment_sum`` over sorted ids (a scatter-add on the GPU).
 
 Everything is fixed shape: invalid inputs sort to the end under a sentinel
 key, voxels beyond ``capacity`` fall into a discard bucket, and the output
@@ -53,11 +45,9 @@ def voxel_indices(xyz: jax.Array, mask: jax.Array, leaf: jax.Array):
 
 # --- packed-operand sort path ------------------------------------------------
 #
-# lax.sort cost on TPU scales with the number of operands (measured on v5e at
-# 3.26M elements: 5 ops 15.5 ms, 3 ops 9.4 ms, 1 op 7.0 ms — gathering
-# payloads after an idx-sort is even worse, 13+ ms for one [N,3] take). The
-# fused-cloud sort was ~half the 8-camera frame, so when the frame allows it
-# we sort TWO operands instead of five:
+# lax.sort moves every operand through every pass, so its cost grows with
+# the operand count. When the frame allows it we sort TWO operands instead
+# of five:
 #
 #   key  : the PCL-order linearised voxel index (ix*ny + iy)*nz + iz built
 #          from the frame's *runtime* extents (traced — no recompile), valid
@@ -90,19 +80,16 @@ def _sorted_segments_packed(pc: PointCloud, leaf, ijk):
 
     Returns (flags, vals [..., N, 7 or 10], min_ijk). The channels are all
     small integers — [ix·flag, iy·flag, iz·flag, q0, q1, q2, 1] plus
-    [r, g, b] for colored clouds — so the segment reduction runs with
-    exact two-limb bf16 products (bf16x2: one third cheaper than the
-    general bf16x3 path; see
-    kernels.segment_reduce._accumulate_onehot_dot). The per-axis voxel
+    [r, g, b] for colored clouds — so their f32 segment sums are exact.
+    The per-axis voxel
     index lands only on each segment's first row (flag-masked: exactly one
     contribution per segment survives the sum), the offsets sum over the
     whole segment, and the centroid reconstructs in _finalize_packed as
     (base + (Σq/n + ½)/1024)·leaf — algebraically the same mean the exact
     path computes, quantised at leaf/2048. RGB rides as a third packed
     operand (24 bits of an i32): a colored cloud sorts 3 operands instead
-    of the exact path's 8 (sort cost scales with operand count — 8-op is
-    ~3x the 2-op cost at 3.26M rows), and its per-voxel mean is exact
-    (8-bit integers, single bf16 limb).
+    of the exact path's 8, and its per-voxel mean is exact (8-bit
+    integers).
     """
     xyz, mask = pc.xyz, pc.mask
     inv = 1.0 / jnp.asarray(leaf, jnp.float32)
@@ -124,9 +111,9 @@ def _sorted_segments_packed(pc: PointCloud, leaf, ijk):
         rq = jnp.clip(pc.rgb.astype(jnp.int32), 0, 255)
         operands.append((rq[..., 0] << 16) | (rq[..., 1] << 8) | rq[..., 2])
 
-    # unstable: XLA's stable sort costs ~1.4x (9.2 vs 6.4 ms at 3.26M);
-    # within-voxel order is irrelevant here — the packed path sums exact
-    # integer channels, so the result is bit-identical either way
+    # unstable: a stable sort costs more, and within-voxel order is
+    # irrelevant here — the packed path sums exact integer channels, so
+    # the result is bit-identical either way
     sorted_ops = jax.lax.sort(operands, num_keys=1, is_stable=False)
     skey, soff = sorted_ops[0], sorted_ops[1]
     valid = skey != _SENTINEL
@@ -201,7 +188,7 @@ def _sorted_segments(pc: PointCloud, leaf, capacity: int):
 
 
 def _flags_to_seg(flags, capacity: int):
-    """Boundary flags → clamped segment ids (XLA fallback path)."""
+    """Boundary flags → clamped segment ids (slot ``capacity`` discards)."""
     seg = jnp.cumsum(flags.astype(jnp.int32), axis=-1) - 1
     return jnp.where((seg >= 0) & (seg < capacity), seg, capacity)
 
@@ -242,77 +229,8 @@ def _reduce_xla(flags, vals, capacity: int):
                                indices_are_sorted=True)[:capacity]
 
 
-def _reduce_pallas(flags, vals, capacity: int, interpret: bool,
-                   precision: str = "bf16x3"):
-    # no VMEM guard needed here: the resident (ch_pad, cap+span) out
-    # block measures fine far past the nominal 16 MB/core — the colored
-    # flagship's 16.9 MB block ships in every bench, and an r5 probe
-    # compiled+ran 64 MB blocks on the v5e (scratch/vmem_probe_r5.py).
-    # (_reduce_pallas_batched's 12 MB switch predates that measurement;
-    # it stays because its lax.map fallback is also correct and the
-    # benched cam passes sit under it either way.)
-    from ..kernels.segment_reduce import segment_sum_from_flags
-    ch = vals.shape[-1]
-    if ch % 8:  # pad channels to a full sublane tile
-        vals = jnp.concatenate(
-            [vals, jnp.zeros((*vals.shape[:-1], 8 - ch % 8), jnp.float32)],
-            axis=-1)
-    # flags variant: segment ids derive in-kernel (SMEM carry), removing the
-    # full-stream cumsum. Limb decomposition keeps products exact below
-    # HIGHEST's MXU cost: bf16x3 for arbitrary f32 (10.8 vs 18 ms on the
-    # 3.26M fused cloud); bf16x2 when the caller feeds <=16-bit integer
-    # channels (the packed path), one third cheaper again.
-    return segment_sum_from_flags(vals, flags, capacity, interpret=interpret,
-                                  precision=precision)[:, :ch]
-
-
-def _reduce_pallas_batched(flags, vals, capacity: int, interpret: bool,
-                           precision: str = "bf16x3"):
-    """Batched reduction: one flat kernel call when the combined output fits
-    in VMEM, else a sequential per-cloud map.
-
-    Flattening gives each cloud its own id range [b*(cap+1), b*(cap+1)+cap]
-    (slot `cap` = per-cloud discard) and pads each cloud's stream to a chunk
-    multiple so no kernel chunk straddles two clouds (the sorted kernel's
-    window-span bound only holds within one cloud's unit-increment ids).
-    """
-    from ..kernels.segment_reduce import segment_sum_sorted
-
-    b, n = flags.shape
-    ch = vals.shape[-1]
-    chunk = 1024
-    total_cap = b * (capacity + 1)
-    ch_pad = ch + (8 - ch % 8) % 8
-    if (total_cap + 2 * chunk) * max(ch_pad, 8) * 4 > 12 * 2 ** 20:
-        red = lambda s, v: _reduce_pallas(s, v, capacity, interpret,
-                                          precision)
-        return jax.lax.map(lambda sv: red(*sv), (flags, vals))
-
-    if ch % 8:
-        vals = jnp.concatenate(
-            [vals, jnp.zeros((b, n, 8 - ch % 8), jnp.float32)], axis=-1)
-    seg = _flags_to_seg(flags, capacity)                  # [B, N] in [0,cap]
-    npad = -(-n // chunk) * chunk
-    if npad != n:
-        seg = jnp.pad(seg, ((0, 0), (0, npad - n)), constant_values=capacity)
-        vals = jnp.pad(vals, ((0, 0), (0, npad - n), (0, 0)))
-    offs = (jnp.arange(b, dtype=jnp.int32) * (capacity + 1))[:, None]
-    seg_flat = (seg + offs).reshape(-1)
-    vals_flat = vals.reshape(b * npad, -1)
-    sums = segment_sum_sorted(vals_flat, seg_flat, total_cap, chunk=chunk,
-                              interpret=interpret, precision=precision)
-    return sums.reshape(b, capacity + 1, -1)[:, :capacity, :ch]
-
-
-def _resolve_impl(impl: str) -> str:
-    if impl == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "xla"
-    return impl
-
-
-@partial(jax.jit, static_argnames=("capacity", "impl", "interpret", "packed"))
+@partial(jax.jit, static_argnames=("capacity", "packed"))
 def voxel_downsample(pc: PointCloud, leaf, capacity: int,
-                     impl: str = "auto", interpret: bool = False,
                      packed: str = "auto") -> PointCloud:
     """Downsample to one centroid per occupied voxel; output padded to capacity.
 
@@ -320,27 +238,19 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
       pc: PointCloud with xyz [N, 3] or camera-batched [B, N, 3] (+mask).
       leaf: voxel edge length in meters (scalar, traced — no recompile on change).
       capacity: static per-cloud output size. Voxels past capacity drop.
-      impl: 'auto' | 'pallas' | 'xla' segment-reduction backend.
-      interpret: run the pallas kernel in interpreter mode (CPU testing).
       packed: 'auto' | 'never' — 'auto' switches (at runtime, via lax.cond)
         to the packed sort (2 operands, 3 with RGB) when the scene extents
         fit 2^30 voxel cells AND leaf <= 0.03 m (xyz reconstruction error
         <= leaf/2048, far inside the oracle tolerance; RGB means exact).
         'never' forces the exact 5/8-operand sort unconditionally.
     """
-    impl = _resolve_impl(impl)
     batched = pc.xyz.ndim == 3
 
-    def reduce_fn(flags, vals, precision="bf16x3"):
-        if impl == "xla":
-            if batched:
-                return jax.vmap(
-                    lambda s, v: _reduce_xla(s, v, capacity))(flags, vals)
-            return _reduce_xla(flags, vals, capacity)
+    def reduce_fn(flags, vals):
         if batched:
-            return _reduce_pallas_batched(flags, vals, capacity, interpret,
-                                          precision)
-        return _reduce_pallas(flags, vals, capacity, interpret, precision)
+            return jax.vmap(
+                lambda s, v: _reduce_xla(s, v, capacity))(flags, vals)
+        return _reduce_xla(flags, vals, capacity)
 
     has_rgb = pc.rgb is not None
     if packed == "never":
@@ -350,8 +260,8 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
     ijk = voxel_indices(pc.xyz, pc.mask, leaf)
     ext = _extents(ijk)
     cells = jnp.prod(ext.astype(jnp.float32), axis=-1)
-    # per-axis bound <= 2^16 keeps the packed path's index channels exact
-    # under two-limb bf16 products (16 significant bits)
+    # per-axis extent <= 2^16 keeps each index channel within 16 bits, the
+    # range the packed path has been checked over
     fits = (jnp.all(cells <= _PACK_MAX_CELLS)
             & jnp.all(ext <= 65536)
             & (jnp.asarray(leaf, jnp.float32) <= _PACK_MAX_LEAF))
@@ -364,7 +274,7 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
 
     def fast(_):
         flags, vals, min_ijk = _sorted_segments_packed(pc, leaf, ijk)
-        sums = reduce_fn(flags, vals, precision="bf16x2")
+        sums = reduce_fn(flags, vals)
         out = _finalize_packed(sums, min_ijk, leaf, has_rgb)
         return (out.xyz, out.mask, out.rgb) if has_rgb \
             else (out.xyz, out.mask)

@@ -1,17 +1,17 @@
-"""Multi-chip execution: camera axis sharded over a device mesh.
+"""Multi-device execution: camera axis sharded over a device mesh.
 
-TPU-native replacement for the reference's process-per-camera distribution
+Accelerator replacement for the reference's process-per-camera distribution
 (reference: one pcs-camera-server per NUC + thread-per-camera in the client —
 SURVEY.md §2.4). The camera axis is already a batch dimension in
 ``stitch_step``; here we lay it over a 1-D ``jax.sharding.Mesh`` so each chip
 deprojects/downsamples its own cameras, and XLA's GSPMD partitioner inserts
-the ICI collectives:
+the device collectives:
 
   * per-camera deproject + voxel: fully local (no comms),
   * ring-pairwise ICP: the [1:] / [:-1] neighbour slicing becomes a
     collective-permute of each camera's ICP cloud to its ring predecessor,
   * fusion + global voxel grid: an all-gather of the (already downsampled)
-    per-camera clouds over ICI — only ~cam_capacity points per chip cross
+    per-camera clouds over the interconnect — only ~cam_capacity points per device cross
     the wire, never raw frames (SURVEY.md §2.5).
 
 This is annotate-shardings-and-let-XLA-partition by design; a hand-written
@@ -49,8 +49,8 @@ def make_sharded_stitch(cfg: StitchConfig, mesh: Mesh, axis: str = "cam"):
     so the host can pull it from any one of them).
     """
     import dataclasses
-    # Pallas custom calls lack GSPMD partitioning rules; under pjit they
-    # would silently replicate. Force the XLA kernel path when sharding.
+    # a Pallas (Triton) custom call has no GSPMD partitioning rule; under
+    # pjit it would silently replicate. Force the XLA path when sharding.
     if cfg.kernel_impl != "xla":
         cfg = dataclasses.replace(cfg, kernel_impl="xla")
     if cfg.num_cameras % mesh.devices.size != 0:

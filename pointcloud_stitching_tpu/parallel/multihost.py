@@ -1,9 +1,9 @@
 """Multi-host (DCN) initialization for capture rigs spanning machines.
 
 SURVEY.md §2.5 host↔host tier: each capture host runs its own ingest and
-feeds its local chips; only fused, downsampled clouds cross DCN (which the
+feeds its local devices; only fused, downsampled clouds cross DCN (which the
 shard_map stitch's all_gather already expresses — under multi-host JAX the
-same collective rides DCN between hosts and ICI within them).
+same collective rides DCN between hosts and NVLink within them).
 
 This is a thin, documented wrapper over jax.distributed so a multi-host
 launch is one call per process:

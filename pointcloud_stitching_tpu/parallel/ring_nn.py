@@ -1,18 +1,18 @@
-"""Cross-chip nearest-neighbour search: ppermute ring over point shards.
+"""Cross-device nearest-neighbour search: ppermute ring over point shards.
 
 The point-cloud analogue of ring attention (SURVEY.md §2.5/§5: the scaling
 axis here is POINT COUNT, not sequence length). When reference clouds are
-too large for one chip — or simply sharded across the mesh with the rest of
+too large for one device — or simply sharded across the mesh with the rest of
 the pipeline — the O(N*M) distance sweep decomposes blockwise:
 
-  * queries stay resident, sharded over the mesh (each chip owns N/D),
+  * queries stay resident, sharded over the mesh (each device owns N/D),
   * the reference shard rotates around the ring D-1 times via
-    ``lax.ppermute`` (ICI neighbour exchange, no all-gather),
-  * each chip keeps a running (best_d2, best_idx) over the shards it has
+    ``lax.ppermute`` (neighbour exchange, no all-gather),
+  * each device keeps a running (best_d2, best_idx) over the shards it has
     seen; global indices come from offsetting by the source shard's base.
 
-Inside each step the local block search is the single-chip kernel path
-(Pallas on TPU, XLA elsewhere), so per-chip compute is identical to the
+Inside each step the local block search is the single-device kernel
+path (ops.nn.nearest_neighbors), so per-device compute is identical to the
 unsharded case — the ring only adds D-1 shard-sized transfers that overlap
 poorly only when D is tiny.
 
@@ -59,7 +59,7 @@ def ring_nearest_neighbors(query: jax.Array, ref: jax.Array,
             better = dd < best_d2
             best_d2 = jnp.where(better, dd, best_d2)
             best_idx = jnp.where(better, gidx, best_idx)
-            # rotate the ref shard to the right neighbour (ICI ring)
+            # rotate the ref shard to the right neighbour (ring)
             perm = [(i, (i + 1) % d) for i in range(d)]
             r_nxt = jax.lax.ppermute(r_cur, axis, perm)
             rm_nxt = jax.lax.ppermute(rm_cur, axis, perm)

@@ -1,17 +1,17 @@
-"""shard_map sharded stitching: Pallas kernels stay active per chip.
+"""shard_map sharded stitching: Pallas kernels stay active per device.
 
 The pjit path (parallel/mesh.py) lets GSPMD partition the program but must
 force the XLA kernel backend — Pallas custom calls have no partitioning
 rule. Under ``jax.shard_map`` each device executes *local* code on its own
-camera shard, so the Pallas voxel/NN kernels run unmodified per chip, and
-the cross-chip dataflow is explicit (SURVEY.md §2.5):
+camera shard, so the Pallas NN kernel runs unmodified per device, and the
+cross-device dataflow is explicit (SURVEY.md §2.5):
 
-  * deproject / ICP-cloud prep / per-camera voxel: chip-local,
-  * ring drift correction: each chip's first camera needs the LAST camera
-    cloud of the previous chip — one ``ppermute`` around the ring,
-  * the (tiny) per-pair corrections are ``all_gather``-ed so every chip
+  * deproject / ICP-cloud prep / per-camera voxel: device-local,
+  * ring drift correction: each device's first camera needs the LAST
+    camera cloud of the previous device — one ``ppermute`` around the ring,
+  * the (tiny) per-pair corrections are ``all_gather``-ed so every device
     computes the same global prefix composition,
-  * per-chip world clouds are voxel-bounded then ``all_gather``-ed over ICI
+  * per-device world clouds are voxel-bounded then ``all_gather``-ed
     (only ~cam_capacity points per camera cross the wire, never raw
     frames); the final fused voxel pass is replicated.
 
@@ -52,7 +52,7 @@ def make_shardmap_stitch(cfg: StitchConfig, mesh: Mesh, axis: str = "cam"):
                          f"mesh size {d}")
     if not cfg.cam_voxel_enabled:
         cfg = dataclasses.replace(cfg, cam_voxel_enabled=True)
-    ncl = cfg.num_cameras // d  # cameras per chip
+    ncl = cfg.num_cameras // d  # cameras per device
 
     def local_fn(model, fx, fy, ppx, ppy, coeffs, model_ids, ext_l,
                  depths_l):
@@ -86,9 +86,7 @@ def make_shardmap_stitch(cfg: StitchConfig, mesh: Mesh, axis: str = "cam"):
         sub = PointCloud(xyz=sub_xyz.reshape(ncl, -1, 3),
                          mask=sub_mask.reshape(ncl, -1), rgb=sub_rgb)
         icp_clouds = voxel_downsample(sub, cfg.icp_voxel_leaf,
-                                      capacity=cfg.icp_capacity,
-                                      impl=cfg.kernel_impl,
-                                      interpret=cfg.kernel_interpret)
+                                      capacity=cfg.icp_capacity)
 
         ext_full = ext_l  # [ncl, 4, 4] local extrinsics
         world = icp_clouds.replace(xyz=se3_apply(ext_full, icp_clouds.xyz))
@@ -136,7 +134,7 @@ def make_shardmap_stitch(cfg: StitchConfig, mesh: Mesh, axis: str = "cam"):
                               nn_impl=cfg.kernel_impl,
                               nn_interpret=cfg.kernel_interpret,
                               trim_fraction=cfg.icp_trim_fraction)
-        # gather every chip's deltas; all chips compute the same composition
+        # gather every device's deltas; all devices compute the same composition
         # (deltas[0] is the ring-closing pair — identity when closure is off,
         # since its dst is fully masked and kabsch then returns identity)
         deltas = jax.lax.all_gather(res.T, axis).reshape(cfg.num_cameras, 4, 4)
@@ -154,21 +152,17 @@ def make_shardmap_stitch(cfg: StitchConfig, mesh: Mesh, axis: str = "cam"):
                        err=err, inl=inl, loop_err=loop_err)
 
     def _finish(raw, ext_local, refined_full, points_in, err, inl, loop_err):
-        """Shared tail: bounded per-camera world clouds -> ICI all_gather ->
+        """Shared tail: bounded per-camera world clouds -> all_gather ->
         global voxel -> metrics."""
         cam_clouds = voxel_downsample(raw, cfg.cam_voxel_leaf,
-                                      capacity=cfg.cam_capacity,
-                                      impl=cfg.kernel_impl,
-                                      interpret=cfg.kernel_interpret)
+                                      capacity=cfg.cam_capacity)
         world_cams = cam_clouds.replace(
             xyz=se3_apply(ext_local, cam_clouds.xyz))
         g_xyz = jax.lax.all_gather(world_cams.xyz, axis).reshape(-1, 3)
         g_mask = jax.lax.all_gather(world_cams.mask, axis).reshape(-1)
         fused = PointCloud(xyz=g_xyz, mask=g_mask)
         out = voxel_downsample(fused, cfg.out_voxel_leaf,
-                               capacity=cfg.out_capacity,
-                               impl=cfg.kernel_impl,
-                               interpret=cfg.kernel_interpret)
+                               capacity=cfg.out_capacity)
         metrics = StitchMetrics(points_in=points_in,
                                 points_out=out.count(),
                                 icp_mean_error=err, icp_inliers=inl,

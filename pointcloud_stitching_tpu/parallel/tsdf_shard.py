@@ -1,17 +1,17 @@
 """Z-slab sharded TSDF: the volume's last grid axis over a device mesh.
 
 The TSDF integrate is voxel-local — every voxel's update reads only its
-own projection into the (small) depth images — so the natural multi-chip
-decomposition is a **slab of the grid per chip with the frames
+own projection into the (small) depth images — so the natural multi-device
+decomposition is a **slab of the grid per device with the frames
 replicated**, not a camera split:
 
-  * integrate: each chip fuses all cameras into its own Z slab against
-    replicated depth images. ZERO bytes of gather traffic cross ICI —
+  * integrate: each device fuses all cameras into its own Z slab against
+    replicated depth images. ZERO bytes of gather traffic cross devices —
     the only per-step comms is the host broadcast of the frames
     (~814 KB/camera at 848×480 u16), and the random-gather wall that
     dominates integrate (models/tsdf.py module docstring) divides by
     the mesh size.
-  * raycast: each chip marches rays through its slab extended by a
+  * raycast: each device marches rays through its slab extended by a
     ``halo`` of neighbour boundary planes (one ``ppermute`` per
     neighbour, X·Y·halo·4 B ≈ 1.6 MB at 256² — so a crossing straddling
     a slab boundary is seen by the slab that owns its far sample), then
@@ -22,7 +22,7 @@ replicated**, not a camera split:
 
 Memory arithmetic (docs/SCALING.md): a 512³ f32 volume is 512 MB per
 array (tsdf + weight = 1 GB, +1.5 GB colored); 8-way Z slabs hold
-128 MB/chip — volumes that cannot exist on one chip run unmodified.
+128 MB/device — volumes that cannot exist on one device run unmodified.
 
 Exactness: slab voxel centers are ``(origin + Zs·k·leaf) + j·leaf``
 versus the unsharded ``origin + (Zs·k + j)·leaf`` — bitwise equal when
@@ -33,8 +33,8 @@ boundaries — tests pin power-of-two geometry for bitwise parity;
 see tests/test_parallel.py).
 
 Reference role: pcl::gpu::kinfu::TsdfVolume is single-GPU; the
-reference system has no multi-device scene model at all (SURVEY.md
-§2.5 ICI tier is this framework's addition).
+reference system has no multi-device scene model at all (the
+multi-device tier is this framework's addition).
 """
 from __future__ import annotations
 
@@ -87,12 +87,10 @@ def make_sharded_integrate(mesh: Mesh, axis: str = "z",
     integrating one multi-camera frame into a Z-slab sharded volume.
 
     ``vol`` must be sharded with :func:`shard_volume`; frames/intrinsics/
-    extrinsics replicate (the host feed broadcasts them). Each chip runs
-    the full single-chip integrate (models/tsdf.py — including the
-    mxu_pallas one-hot kernel, legal here because shard_map executes
-    per-device code, unlike GSPMD which lacks a Pallas partitioning
-    rule) on its slab with a shifted origin; no collective appears in
-    the step at all.
+    extrinsics replicate (the host feed broadcasts them). Each device
+    runs the full single-device integrate (models/tsdf.py, any
+    ``method``) on its slab with a shifted origin; no collective appears
+    in the step at all.
     """
     zs_spec = P(None, None, axis)
     rep = P()

@@ -55,8 +55,8 @@ def run(host: str, port: int, frames: int, deproject: bool = False,
 
 
 def main(argv=None):
-    from ..utils.platform import apply_platform_override
-    apply_platform_override()
+    from ..utils.platform import setup_compilation_cache
+    setup_compilation_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)

@@ -15,8 +15,7 @@ consumers that *die* (send raises) and consumers that *stall* without
 closing: each connection has a send timeout (``send_timeout``), and a
 subscriber whose TCP buffer stays full past it is disconnected — its
 stream is mid-frame at that point, so resuming is impossible and the drop
-is the only consistent outcome (VERDICT r2 weak #4: a blocking ``sendall``
-here would stall ``stitch_cli``'s own stitching loop).
+is the only consistent outcome.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ length-prefixed frames, snappy-compressed payload of int16-millimeter XYZ +
 RGB bytes; SURVEY.md §1 L1 and §2.5).
 
 Two payload kinds:
-  * DEPTH16 — raw uint16 depth frames. The TPU-native streaming mode:
+  * DEPTH16 — raw uint16 depth frames. The default streaming mode:
     deprojection moved on-device (BASELINE: "the host keeps only camera
     capture and socket ingest"), so the wire carries what the sensor
     produces. 848x480 u16 ≈ 814 KB raw, typically 350-500 KB compressed.

@@ -73,8 +73,8 @@ def main(argv=None):
                         "tool reports saturation)")
     args = ap.parse_args(argv)
 
-    from pointcloud_stitching_tpu.utils.platform import apply_platform_override
-    apply_platform_override()
+    from pointcloud_stitching_tpu.utils.platform import setup_compilation_cache
+    setup_compilation_cache()
 
     if args.depth.endswith(".npz"):
         import numpy as np

@@ -62,8 +62,8 @@ def main(argv=None):
                     help="--gicp normal-estimation radius (meters)")
     args = ap.parse_args(argv)
 
-    from pointcloud_stitching_tpu.utils.platform import apply_platform_override
-    apply_platform_override()
+    from pointcloud_stitching_tpu.utils.platform import setup_compilation_cache
+    setup_compilation_cache()
 
     import numpy as np
 

@@ -85,8 +85,8 @@ def main(argv=None):
     if args.hull_alpha is not None:
         args.hull = True
 
-    from pointcloud_stitching_tpu.utils.platform import apply_platform_override
-    apply_platform_override()
+    from pointcloud_stitching_tpu.utils.platform import setup_compilation_cache
+    setup_compilation_cache()
 
     import jax
     import numpy as np

@@ -43,10 +43,11 @@ class StitchConfig:
     color_height: int | None = None
     color_width: int | None = None
 
-    # optional per-camera voxel pre-downsample. Off by default: single-chip,
-    # fusing raw clouds into one global voxel pass is cheaper AND matches the
+    # optional per-camera voxel pre-downsample. Off by default: on one
+    # device, fusing raw clouds into one global voxel pass matches the
     # reference dataflow (transform -> concat -> one VoxelGrid). Turn on for
-    # multi-chip meshes to bound the per-camera cloud that crosses ICI.
+    # multi-device meshes to bound the per-camera cloud that crosses the
+    # interconnect.
     cam_voxel_enabled: bool = False
     cam_voxel_leaf: float = 0.01
     cam_capacity: int = 131072
@@ -67,16 +68,15 @@ class StitchConfig:
     # grow until the scene fits, shrink back toward out_voxel_leaf (the
     # floor = the finest/target resolution) when it would fit with
     # headroom. The leaf is a *traced* operand, so adaptation never
-    # recompiles — the TPU-native answer to PCL's unbounded realloc.
+    # recompiles — the fixed-shape answer to PCL's unbounded realloc.
     out_leaf_autofit: bool = False
     out_leaf_max: float = 0.08   # controller ceiling (meters)
 
     # per-frame ICP drift correction (config 4/5); BASELINE: >=5 iters/frame
     icp_enabled: bool = True
     icp_stride: int = 6        # grid-stride subsample feeding the ICP clouds
-    # ICP-cloud density knobs. NN cost scales with icp_capacity^2 and the
-    # drift stage was ~40% of the 8-cam frame at 4096, so 2048 is the
-    # default (8-cam frame 15.7 -> 12.2 ms). IMPORTANT: pick leaf so the
+    # ICP-cloud density knobs. NN cost scales with icp_capacity^2, so 2048
+    # is the default. IMPORTANT: pick leaf so the
     # expected per-camera voxel count FITS capacity — overflow drops the
     # sorted tail, i.e. a spatially biased amputation of the ICP cloud
     # (measured on the rendered partial-overlap rig: cap 2048 @ 5 cm leaf
@@ -88,11 +88,11 @@ class StitchConfig:
     icp_max_corr_dist: float = 0.1
     # trimmed ICP: additionally drop this fraction of the worst accepted
     # matches each iteration. Measured on the rendered partial-overlap ring
-    # (8 cams, common height-field, drift injected; scratch r3): at 77%
-    # adjacent overlap trim=0.1 leaves 3.3% of injected drift vs 14.7%
-    # untrimmed (+0.14 ms/frame); at 92% overlap the two are equal within
-    # noise (1-2%). Robustness for realistic rigs at negligible cost, so
-    # 0.1 is the default; set 0.0 for the pure-PCL-default behavior.
+    # (8 cams, common height-field, drift injected): at 77% adjacent
+    # overlap trim=0.1 leaves 3.3% of injected drift vs 14.7% untrimmed;
+    # at 92% overlap the two are equal within noise (1-2%). Robustness for
+    # realistic rigs, so 0.1 is the default; set 0.0 for the
+    # pure-PCL-default behavior.
     icp_trim_fraction: float = 0.1
     # measure the closing pair (camera 0 vs camera n-1) too and distribute
     # the loop residual along the chain: chain-end drift stays bounded
@@ -113,23 +113,23 @@ class StitchConfig:
     icp_closure_gate_rot: float = 0.26
     # 'point_to_plane' (default: grid normals, converges in ~half the
     # iterations, no smooth-surface sliding) or 'point_to_point' (the
-    # reference's PCL default). Measured on the 8-cam drift-recovery rig
-    # (scratch experiment, r2): p2plane@3 leaves 1.2% of injected drift at
-    # 20.3 ms/frame; p2point@5 left 165% (it slides on smooth surfaces) at
-    # 22.2 ms — better quality at lower cost, so p2plane is the default.
+    # reference's PCL default). Measured on the 8-cam drift-recovery rig:
+    # p2plane@3 leaves 1.2% of injected drift; p2point@5 left 165% (it
+    # slides on smooth surfaces), so p2plane is the default.
     icp_variant: str = "point_to_plane"
     icp_query_tile: int = 1024
     icp_ref_tile: int = 4096
 
-    # kernel backend: 'auto' (Pallas on TPU), 'xla', 'pallas'. The GSPMD
-    # sharded path (parallel/mesh.py) forces 'xla' — Pallas custom calls
-    # have no GSPMD partitioning rule, so under pjit they would replicate.
-    # The shard_map path (parallel/shard_stitch.py) honours it: each chip
-    # executes the kernels locally.
+    # NN kernel choice for the ICP drift stage, resolved by
+    # utils.platform.kernel_impl: 'auto' (the Pallas kernel on a GPU, XLA
+    # elsewhere), 'xla', 'pallas'. The GSPMD sharded path
+    # (parallel/mesh.py) forces 'xla' — a Pallas custom call has no GSPMD
+    # partitioning rule, so under pjit it would replicate. The shard_map
+    # path (parallel/shard_stitch.py) honours it: each device runs the
+    # kernel locally.
     kernel_impl: str = "auto"
-    # run Pallas kernels in interpreter mode (CPU-mesh testing of the
-    # kernel_impl='pallas' path; never set on real TPUs — interpret mode
-    # is orders of magnitude slower)
+    # run the Pallas kernel in interpret mode (CPU tests of the
+    # kernel_impl='pallas' path; refused on a GPU)
     kernel_interpret: bool = False
 
 

@@ -1,4 +1,4 @@
-"""Core data types for the TPU-native point-cloud stitching framework.
+"""Core data types for the point-cloud stitching framework.
 
 Design notes
 ------------
@@ -14,12 +14,34 @@ Camera intrinsics mirror librealsense's ``rs2_intrinsics`` (reference layer L0,
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree.
+
+    Fields declared with ``static_field`` are treedef metadata (hashed into
+    the jit cache key; a change retraces); every other field is a leaf.
+    ``.replace(**changes)`` returns a copy with fields swapped.
+    """
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in fields if not f.metadata.get("static")],
+        meta_fields=[f.name for f in fields if f.metadata.get("static")])
+    cls.replace = dataclasses.replace
+    return cls
+
+
+def static_field(default):
+    """A ``pytree_dataclass`` field that is metadata, not a leaf."""
+    return dataclasses.field(default=default, metadata={"static": True})
 
 
 class DistortionModel(enum.IntEnum):
@@ -35,7 +57,7 @@ class DistortionModel(enum.IntEnum):
     MIXED = -1
 
 
-@struct.dataclass
+@pytree_dataclass
 class Intrinsics:
     """Pinhole + Brown–Conrady intrinsics for one depth camera.
 
@@ -53,9 +75,9 @@ class Intrinsics:
     # when model == MIXED; None otherwise so the static fast paths stay
     # single-branch
     model_ids: Optional[jax.Array] = None
-    width: int = struct.field(pytree_node=False, default=848)
-    height: int = struct.field(pytree_node=False, default=480)
-    model: int = struct.field(pytree_node=False, default=int(DistortionModel.NONE))
+    width: int = static_field(848)
+    height: int = static_field(480)
+    model: int = static_field(int(DistortionModel.NONE))
 
     @classmethod
     def create(cls, fx, fy, ppx, ppy, coeffs=None, width=848, height=480,
@@ -110,7 +132,7 @@ class Intrinsics:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class PointCloud:
     """Fixed-capacity padded point cloud.
 

@@ -2,8 +2,8 @@
 
 BASELINE.md line 16 demands ">=10x the C++/PCL CPU baseline throughput" but the
 reference publishes no numbers (BASELINE.json "published": {}), so the ratio
-must be measured here, on this host, over the same 8-cam 848x480 flagship
-workload the TPU bench runs (bench.py). Two baselines:
+must be measured on the host CPU, over the same 8-cam 848x480 flagship
+workload the GPU bench runs (bench.py). Two baselines:
 
   * numpy/scipy: the oracle math (tests/oracle.py — the PCL-parity contract)
     with scipy.spatial.cKDTree for NN (what pcl::KdTreeFLANN is), vectorized
@@ -17,8 +17,8 @@ The per-frame work mirrors models/stitcher.stitch_step at the flagship config
 §3.2): 8x deproject -> ICP subsample (stride 6, 5 cm voxel) -> 7 pairwise
 ICPs x 5 iterations -> transform to world -> concat -> 1 cm global voxel.
 
-Writes BENCH_CPU.json {"cpu_pps": ..., "frame_ms": ..., ...}; bench.py reads
-it to report vs_cpu_baseline.
+Prints one JSON line {"cpu_pps": ..., "frame_ms": ..., ...} and, with
+--out, writes it to that file.
 """
 from __future__ import annotations
 
@@ -93,7 +93,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cameras", type=int, default=8)
     ap.add_argument("--frames", type=int, default=3)
-    ap.add_argument("--out", default=os.path.join(_REPO, "BENCH_CPU.json"))
+    ap.add_argument("--out", help="also write the JSON result here")
     args = ap.parse_args()
 
     ncam, h, w = args.cameras, 480, 848
@@ -137,8 +137,9 @@ def main():
         "host": os.uname().nodename,
         "nproc": os.cpu_count(),
     }
-    with open(args.out, "w") as f:
-        json.dump(result, f, indent=2)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=2)
     print(json.dumps(result))
 
 

@@ -12,6 +12,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import sys
 import time
@@ -34,6 +35,9 @@ def main():
                     help="extra args forwarded to stitch_cli")
     args = ap.parse_args()
 
+    # the servers stay on the CPU: only the stitch process opens the GPU
+    # (a JAX process reserves most of a card's memory when it starts)
+    server_env = dict(os.environ, JAX_PLATFORMS="cpu")
     servers = []
     try:
         for i in range(args.cameras):
@@ -48,7 +52,8 @@ def main():
                 cmd += ["--points"]
             if args.color:
                 cmd += ["--color"]
-            p = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+            p = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                 env=server_env)
             print(p.stdout.readline().strip(), flush=True)
             servers.append(p)
 

@@ -1,6 +1,6 @@
 """Adaptive output-grid resolution (cfg.out_leaf_autofit).
 
-A fixed-capacity voxel grid is the TPU-native replacement for PCL's
+A fixed-capacity voxel grid is the fixed-shape replacement for PCL's
 dynamically sized VoxelGrid output; when a scene outgrows it, the sorted
 tail of voxels drops (spatially biased). The autofit controller instead
 trades resolution for coverage: the output leaf is a *traced* operand of

@@ -58,7 +58,7 @@ def test_deproject_inverse_brown_conrady():
 
 def test_deproject_mixed_models_matches_oracle():
     """A rig mixing NONE + BROWN_CONRADY + INVERSE_BROWN_CONRADY cameras
-    (VERDICT r1 weak #7): stack() goes MIXED with traced per-camera ids, and
+: stack() goes MIXED with traced per-camera ids, and
     every camera matches its own single-model oracle deprojection."""
     depths = np.stack([synth_depth_frame(seed=s) for s in range(3)])
     coeffs = [[0.0] * 5,
@@ -132,7 +132,7 @@ def test_stack_rejects_mixed_resolutions():
 
 def test_map_color_matches_oracle():
     """Texture-coordinate color mapping with separate color calibration
-    (rs2 map_to semantics — VERDICT r1 missing #3): nearest-pixel lookup
+    (rs2 map_to semantics): nearest-pixel lookup
     after projecting through the color camera, vs the numpy oracle."""
     from oracle import map_color_np, random_se3
     from pointcloud_stitching_tpu.ops import deproject_with_color_mapped

@@ -1,7 +1,7 @@
-"""Backend-equivalence fuzzing: pallas (interpret) vs xla across random
-shapes, leaf sizes, masks, and color on/off. Broad safety net for kernel
-changes — any divergence between the two implementations is a bug in one
-of them.
+"""Backend-equivalence fuzzing across random shapes, leaf sizes, masks and
+color on/off: the voxel grid against the numpy oracle, and the Pallas NN
+kernel (interpret mode) against the XLA sweep. Broad safety net for kernel
+changes — any divergence is a bug in one of the implementations.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -9,6 +9,7 @@ import pytest
 
 from pointcloud_stitching_tpu import PointCloud
 from pointcloud_stitching_tpu.ops import nearest_neighbors, voxel_downsample
+from oracle import voxel_downsample_np
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -24,14 +25,17 @@ def test_voxel_backends_agree_fuzz(seed):
            if rng.random() < 0.5 else None)
     pc = PointCloud(xyz=jnp.asarray(pts), mask=jnp.asarray(mask),
                     rgb=None if rgb is None else jnp.asarray(rgb))
-    a = voxel_downsample(pc, leaf, capacity=cap, impl="pallas",
-                         interpret=True)
-    b = voxel_downsample(pc, leaf, capacity=cap, impl="xla")
-    np.testing.assert_array_equal(np.asarray(a.mask), np.asarray(b.mask))
-    np.testing.assert_allclose(np.asarray(a.xyz), np.asarray(b.xyz),
+    a = voxel_downsample(pc, leaf, capacity=cap)
+    want_xyz, want_rgb = voxel_downsample_np(pts[mask], leaf,
+                                             None if rgb is None
+                                             else rgb[mask])
+    k = min(cap, len(want_xyz))         # overflow drops the sorted tail
+    m = np.asarray(a.mask)
+    assert m.sum() == k and m[:k].all()
+    np.testing.assert_allclose(np.asarray(a.xyz)[:k], want_xyz[:k],
                                atol=1e-4)
     if rgb is not None:
-        np.testing.assert_allclose(np.asarray(a.rgb), np.asarray(b.rgb),
+        np.testing.assert_allclose(np.asarray(a.rgb)[:k], want_rgb[:k],
                                    atol=1e-2)
 
 

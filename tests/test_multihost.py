@@ -1,7 +1,6 @@
 """Multi-host (DCN) smoke test: 2 real processes over jax.distributed.
 
-Exercises parallel/multihost.py end-to-end (VERDICT r1 weak #6: it was the
-only never-executed module): two localhost processes initialize a
+Exercises parallel/multihost.py end-to-end: two localhost processes initialize a
 jax.distributed rig (Gloo over TCP = the CPU stand-in for DCN), each voxel-
 downsamples its own cameras' points locally, and only the fused clouds cross
 the process boundary via process_allgather — the SURVEY.md §2.5 host<->host

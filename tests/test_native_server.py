@@ -104,7 +104,7 @@ def test_rs2_capture_path_compiles():
     buildable: syntax-check it against the stub librealsense2 headers
     (native/rs2_stub/) — the SDK itself is not installable here, so this is
     the CI guard that keeps the real-capture path code, not a seam
-    (VERDICT r2 missing #1)."""
+."""
     try:
         r = subprocess.run(
             ["g++", "-std=c++17", "-DPCS_WITH_RS2",

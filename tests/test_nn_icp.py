@@ -76,7 +76,7 @@ def test_icp_converges_to_truth(rng):
 
 def test_icp_converge_variant_stops_early(rng):
     src, dst, T_true = _make_icp_pair(rng, seed=8)
-    # epsilon at PCL's default class (1e-8), not tighter: on TPU a genuine
+    # epsilon at PCL's default class (1e-8), not tighter: on an accelerator a genuine
     # correspondence near-tie can flip between iterations, leaving a
     # ~1e-10-scale wobble in dT that never settles below 1e-10 even though
     # the transform is fully converged (passes atol=5e-3 below either way)
@@ -120,7 +120,7 @@ def test_trimmed_icp_survives_gross_outliers(rng):
 
 
 def test_trim_weights_acts_on_accepted_subset_only():
-    """Regression (ADVICE r1, high): jnp.quantile returns NaN whenever any
+    """Regression: jnp.quantile returns NaN whenever any
     correspondence is rejected (masked / gated), which silently disabled
     trimming for every realistic padded-cloud config. nanquantile must trim
     the accepted subset regardless of how many entries are rejected."""

@@ -169,7 +169,7 @@ def test_normals_survive_cam_voxel_prepass():
     """with_normals + cam_voxel_enabled: the per-camera voxel pass sees
     FLOAT unit normals in the rgb channel — the packed sort's
     integer-rgb gate must route them through the exact path, keeping the
-    averaged directions intact (the multi-chip configuration)."""
+    averaged directions intact (the multi-device configuration)."""
     import dataclasses
     cfg, intr, ext, depths = _flat_scene()
     cfg = dataclasses.replace(cfg, cam_voxel_enabled=True,

@@ -10,8 +10,12 @@ from pointcloud_stitching_tpu.parallel import make_mesh, make_sharded_stitch
 from pointcloud_stitching_tpu.utils.config import StitchConfig
 from oracle import random_se3, synth_depth_frame
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs multi-device (virtual CPU) mesh")
+
+
+@pytest.fixture(autouse=True)
+def _multi_device():
+    if len(jax.devices()) < 2:
+        pytest.skip("needs multi-device (virtual CPU) mesh")
 
 
 def _cfg(ncam, icp=True):
@@ -244,12 +248,10 @@ def test_shardmap_stitch_point_to_plane_matches_single_device():
 
 
 def test_shardmap_stitch_pallas_interpret_matches_single_device():
-    """The Pallas kernels EXECUTING under shard_map (VERDICT r3 weak #4):
-    kernel_impl='pallas' with interpret=True on the CPU mesh, parity vs
-    the single-device XLA pipeline. This turns 'Pallas-capable per chip
-    by construction' into a tested property — the same composed program
-    (shard_map -> voxel/NN pallas_call) that runs on a real multi-chip
-    TPU, minus only the Mosaic compiler."""
+    """The Pallas NN kernel executing under shard_map: kernel_impl='pallas'
+    with interpret=True on the CPU mesh, parity vs the single-device XLA
+    pipeline — the same composed program (shard_map -> NN pallas_call)
+    that runs on a multi-GPU mesh, minus only the Triton compiler."""
     import dataclasses
     from pointcloud_stitching_tpu.parallel import make_shardmap_stitch
     ncam = len(jax.devices())
@@ -378,9 +380,8 @@ def test_sharded_tsdf_integrate_matches_single_device():
 
 
 def test_sharded_tsdf_integrate_mxu_pallas_interpret_color():
-    """The composed program a real multi-chip rig runs: shard_map ->
-    per-slab mxu_pallas integrate (patch_gather in interpret mode on the
-    CPU mesh) with packed uint8 color — bitwise vs unsharded dense."""
+    """shard_map -> per-slab one-hot integrate (method='mxu_xla') with
+    packed uint8 color — bitwise vs unsharded dense."""
     from pointcloud_stitching_tpu.models import tsdf as M
     from pointcloud_stitching_tpu.parallel import (make_sharded_integrate,
                                                    shard_volume)
@@ -397,7 +398,7 @@ def test_sharded_tsdf_integrate_mxu_pallas_interpret_color():
     vs = shard_volume(
         M.TSDFVolume.create(shape, leaf, origin=origin, with_rgb=True),
         mesh, axis="z")
-    fn = make_sharded_integrate(mesh, axis="z", method="mxu_pallas")
+    fn = make_sharded_integrate(mesh, axis="z", method="mxu_xla")
     vs = fn(vs, depth, intr_b, ext, **kw)
     assert np.array_equal(np.asarray(vs.tsdf), np.asarray(ref.tsdf))
     assert np.array_equal(np.asarray(vs.weight), np.asarray(ref.weight))

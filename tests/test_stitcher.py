@@ -328,7 +328,7 @@ def test_compose_ring_corrections_reduces_chain_end_error():
     """The closure math, isolated from ICP: with iid per-pair measurement
     noise, the open chain's end-camera error compounds (~sqrt(n) sigma)
     while closure distributes the loop residual and keeps it ~sigma
-    (VERDICT r1 #5). Averaged over many draws so the comparison is a
+. Averaged over many draws so the comparison is a
     property, not a coin flip."""
     from pointcloud_stitching_tpu.models.stitcher import (
         _compose_ring_corrections)
@@ -359,7 +359,7 @@ def test_compose_ring_corrections_reduces_chain_end_error():
 def test_ring_closure_bounds_chain_end_drift():
     """Drift injected on every camera of a 6-ring through the full pipeline:
     with closure the last camera's recovered extrinsic error stays bounded
-    and the loop residual is observable in the metrics (VERDICT r1 #5)."""
+    and the loop residual is observable in the metrics."""
     ncam = 6
     depths, intr, ext = _ring_scene(ncam)
     kw = dict(icp_enabled=True, icp_iterations=6, icp_max_corr_dist=0.2)

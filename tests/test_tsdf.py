@@ -421,7 +421,7 @@ def test_rig_track_gates_reject_unsupported_fit():
 
 
 def test_rig_track_beats_ring_icp_on_global_drift():
-    """The VERDICT r4 item-6 contract: on a slow-drift rig the
+    """The contract: on a slow-drift rig the
     frame-to-model residual is at or below ring ICP's. Ring ICP is
     relative-only (camera 0 anchors the chain), so a GLOBAL rig drift
     leaves every pairwise residual near zero while the world poses stay
@@ -673,7 +673,7 @@ def test_integrate_method_validation():
 
 
 # ---------------------------------------------------------------------------
-# MXU (one-hot matmul) integration
+# one-hot matmul integration
 # ---------------------------------------------------------------------------
 
 def _bitwise_vs_dense(va, vb):
@@ -682,7 +682,7 @@ def _bitwise_vs_dense(va, vb):
 
 
 def test_integrate_mxu_matches_dense_bitwise():
-    """The one-hot MXU depth lookup selects exactly one patch element at
+    """The one-hot depth lookup selects exactly one patch element at
     HIGHEST precision, so parity with the dense gather is BITWISE
     equality, not a tolerance (tsdf.py: _mxu_depth_lookup)."""
     intr = _intr()
@@ -723,36 +723,6 @@ def test_integrate_mxu_gates_match_dense():
     _bitwise_vs_dense(va, vb)
 
 
-def test_integrate_mxu_pallas_interpret_matches_dense():
-    """The Pallas patch-gather variant (kernels/patch_gather.py), in
-    interpret mode on CPU — covers the VMEM one-hot formulation and the
-    alignment-slop contract, including near-camera fallback bricks."""
-    intr = _intr()
-    d1 = render_depth(intr, I4, **SCENE)
-    d1[::37, :] = 0.0
-    batched = jnp.stack([jnp.asarray(d1), jnp.asarray(d1) * 0.9])
-    intr_b = intr.stack([intr])
-    ext_b = jnp.stack([jnp.asarray(I4), jnp.asarray(I4)])
-    for origin in [(-0.64, -0.64, 0.0), (-0.3, -0.2, -0.4)]:
-        va = M.TSDFVolume.create((32, 32, 32), 0.04, origin=origin)
-        va = M.integrate(va, batched, intr_b, ext_b, depth_scale=1.0,
-                         method="dense")
-        vb = M.TSDFVolume.create((32, 32, 32), 0.04, origin=origin)
-        vb = M.integrate(vb, batched, intr_b, ext_b, depth_scale=1.0,
-                         method="mxu_pallas")
-        _bitwise_vs_dense(va, vb)
-
-    # u16 source: the kernel gathers the raw integer-valued image with
-    # the 2-pass bf16x2 limb mode and scales after — still bitwise
-    b16 = (np.stack([d1, d1 * 0.9]) * 1000.0).astype(np.uint16)
-    va = M.TSDFVolume.create((32, 32, 32), 0.04, origin=(-0.64, -0.64, 0))
-    va = M.integrate(va, jnp.asarray(b16), intr_b, ext_b, method="dense")
-    vb = M.TSDFVolume.create((32, 32, 32), 0.04, origin=(-0.64, -0.64, 0))
-    vb = M.integrate(vb, jnp.asarray(b16), intr_b, ext_b,
-                     method="mxu_pallas")
-    _bitwise_vs_dense(va, vb)
-
-
 def test_integrate_mxu_noise_overflows_to_full_gather():
     """A noise frame from INSIDE the volume blows past the kb
     near-camera brick cap; the per-camera lax.cond full-gather fallback
@@ -786,28 +756,23 @@ def test_integrate_mxu_color_matches_dense_bitwise():
     ext_b = jnp.stack([jnp.asarray(I4), jnp.asarray(I4)])
     for col in (jnp.asarray(color),
                 jnp.asarray(color).astype(jnp.float32)):
-        for method in ("mxu_xla", "mxu_pallas"):
-            kw = dict(depth_scale=1.0, color=col)
-            va = M.TSDFVolume.create((32, 32, 32), 0.04,
-                                     origin=(-0.64, -0.64, 0.0),
-                                     with_rgb=True)
-            va = M.integrate(va, batched, intr_b, ext_b, method="dense",
-                             **kw)
-            vb = M.TSDFVolume.create((32, 32, 32), 0.04,
-                                     origin=(-0.64, -0.64, 0.0),
-                                     with_rgb=True)
-            vb = M.integrate(vb, batched, intr_b, ext_b, method=method,
-                             **kw)
-            _bitwise_vs_dense(va, vb)
-            assert np.array_equal(np.asarray(va.rgb), np.asarray(vb.rgb))
+        kw = dict(depth_scale=1.0, color=col)
+        va = M.TSDFVolume.create((32, 32, 32), 0.04,
+                                 origin=(-0.64, -0.64, 0.0), with_rgb=True)
+        va = M.integrate(va, batched, intr_b, ext_b, method="dense", **kw)
+        vb = M.TSDFVolume.create((32, 32, 32), 0.04,
+                                 origin=(-0.64, -0.64, 0.0), with_rgb=True)
+        vb = M.integrate(vb, batched, intr_b, ext_b, method="mxu_xla", **kw)
+        _bitwise_vs_dense(va, vb)
+        assert np.array_equal(np.asarray(va.rgb), np.asarray(vb.rgb))
 
 
 def test_onehot_gather_chunk_padding_bitwise():
     """The XLA one-hot gather pads ragged brick counts up to full
     lax.map chunks with don't-care rows instead of degenerating to a
-    gcd chunk of 1-2 (r5 review: the pruned tier capacities nb//3 /
-    nb//2 are rarely 1024-divisible, and gcd chunking serialized the
-    map into thousands of steps). Padding must stay bitwise: drive the
+    gcd chunk of 1-2 (the pruned tier capacities nb//3 / nb//2 are
+    rarely 1024-divisible, and gcd chunking serialized the map into
+    thousands of steps). Padding must stay bitwise: drive the
     padded branch directly (K=1500 > _MXU_CHUNK, not a multiple) against
     a numpy gather."""
     from pointcloud_stitching_tpu.models.tsdf import (_BVOX, _MXU_CHUNK,
@@ -824,8 +789,7 @@ def test_onehot_gather_chunk_padding_bitwise():
     iu = rng.integers(0, pu, (k, _BVOX), dtype=np.int32)
     got = np.asarray(_onehot_gather(
         jnp.asarray(img), jnp.asarray(v0), jnp.asarray(u0),
-        jnp.asarray(iv), jnp.asarray(iu),
-        use_pallas=False, interpret=False, mode="bf16x2"))
+        jnp.asarray(iv), jnp.asarray(iu)))
     want = img[v0[:, None] + iv, u0[:, None] + iu]
     assert got.shape == (k, _BVOX)
     assert np.array_equal(got, want)
@@ -836,16 +800,13 @@ def test_integrate_mxu_any_shape_matches_dense_bitwise():
     cropped after the elementwise merge — bitwise for any shape."""
     intr = _intr()
     d1 = render_depth(intr, I4, **SCENE)
-    for method in ("mxu_xla", "mxu_pallas"):
-        va = M.TSDFVolume.create((20, 28, 13), 0.05,
-                                 origin=(-0.5, -0.7, 0.0))
-        va = M.integrate(va, jnp.asarray(d1), intr, I4, depth_scale=1.0,
-                         method="dense")
-        vb = M.TSDFVolume.create((20, 28, 13), 0.05,
-                                 origin=(-0.5, -0.7, 0.0))
-        vb = M.integrate(vb, jnp.asarray(d1), intr, I4, depth_scale=1.0,
-                         method=method)
-        _bitwise_vs_dense(va, vb)
+    va = M.TSDFVolume.create((20, 28, 13), 0.05, origin=(-0.5, -0.7, 0.0))
+    va = M.integrate(va, jnp.asarray(d1), intr, I4, depth_scale=1.0,
+                     method="dense")
+    vb = M.TSDFVolume.create((20, 28, 13), 0.05, origin=(-0.5, -0.7, 0.0))
+    vb = M.integrate(vb, jnp.asarray(d1), intr, I4, depth_scale=1.0,
+                     method="mxu_xla")
+    _bitwise_vs_dense(va, vb)
 
 
 # ---------------------------------------------------------------------------

@@ -107,8 +107,8 @@ def test_voxel_rgb_packed_matches_exact(rng):
     rgb = rng.integers(0, 256, size=(4000, 3)).astype(np.float32)
     pc = PointCloud.from_points(pts, rgb=rgb)
     leaf = 0.02
-    fast = voxel_downsample(pc, leaf, capacity=8192, impl="xla")
-    slow = voxel_downsample(pc, leaf, capacity=8192, impl="xla",
+    fast = voxel_downsample(pc, leaf, capacity=8192)
+    slow = voxel_downsample(pc, leaf, capacity=8192,
                             packed="never")
     mf, ms = np.asarray(fast.mask), np.asarray(slow.mask)
     assert mf.sum() == ms.sum() > 100
@@ -126,7 +126,7 @@ def test_voxel_rgb_nonint_takes_exact_path(rng):
     pts = rng.uniform(-1, 1, size=(3000, 3)).astype(np.float32)
     rgb = rng.uniform(0, 255, size=(3000, 3)).astype(np.float32)
     pc = PointCloud.from_points(pts, rgb=rgb)
-    out = voxel_downsample(pc, 0.02, capacity=8192, impl="xla")
+    out = voxel_downsample(pc, 0.02, capacity=8192)
     ref_xyz, ref_rgb = voxel_downsample_np(np.asarray(pts), 0.02,
                                            rgb=np.asarray(rgb))
     m = np.asarray(out.mask)
@@ -144,8 +144,8 @@ def test_voxel_rgb_packed_batched(rng):
     mask = np.ones((2, 3000), bool)
     pc = PointCloud(xyz=jnp.asarray(pts), mask=jnp.asarray(mask),
                     rgb=jnp.asarray(rgb))
-    fast = voxel_downsample(pc, 0.02, capacity=8192, impl="xla")
-    slow = voxel_downsample(pc, 0.02, capacity=8192, impl="xla",
+    fast = voxel_downsample(pc, 0.02, capacity=8192)
+    slow = voxel_downsample(pc, 0.02, capacity=8192,
                             packed="never")
     for b in range(2):
         mf, ms = np.asarray(fast.mask[b]), np.asarray(slow.mask[b])

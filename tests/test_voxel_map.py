@@ -86,12 +86,10 @@ def random_frames(rng, n_frames=4, n=600, scale=1.5, with_rgb=False):
     return frames
 
 
-@pytest.mark.parametrize("impl,interp", [("xla", False), ("pallas", True)])
-def test_single_update_matches_oracle(rng, impl, interp):
+def test_single_update_matches_oracle(rng):
     xyz = rng.uniform(-2, 2, size=(800, 3))
     vm = VoxelMap.create(4096, leaf=0.25)
-    vm = voxel_map_update(vm, cloud(xyz, capacity=1024), impl=impl,
-                          interpret=interp)
+    vm = voxel_map_update(vm, cloud(xyz, capacity=1024))
     assert_maps_match(vm, oracle_update({}, xyz, 0.25))
 
 
